@@ -3,7 +3,7 @@
 
 Parity target: ``examples/example_key.py`` — the reference drives one env
 with the keyboard (isaacgym_wrapper.py:439-460, WASD -> +/-2 velocity) and
-optionally demos suction.  Headless TPU has no viewer, so two modes exist:
+optionally demos suction.  A headless host has no viewer, so two modes exist:
 
   * default: the same velocity commands are scripted (CI-safe smoke test);
   * ``--interactive``: a real terminal teleop — raw-mode stdin reads

@@ -1,4 +1,4 @@
-"""m3p2i_aip_tpu — TPU-native Multi-Modal MPPI + Active Inference TAMP framework.
+"""m3p2i_aip_tpu — Multi-Modal MPPI + Active Inference TAMP framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of tud-amr/m3p2i-aip
 (RA-L 2024, "Multi-Modal MPPI and Active Inference for Reactive Task and Motion
@@ -8,7 +8,7 @@ everything here is a single device-resident jitted loop:
   * ``sim``      — pure-functional batched rigid-body simulator (replaces Isaac Gym)
   * ``models``   — robot/scene models (point robot, boxer, heijn, albert, panda)
   * ``ops``      — math kernels: quaternions, Halton sampling, B-splines,
-                   Savitzky–Golay, discounted cost-to-go (+ Pallas TPU kernels)
+                   Savitzky–Golay, discounted cost-to-go (+ Pallas/Triton GPU kernels)
   * ``planners`` — MPPI / M3P2I motion planners + active-inference task planner
   * ``parallel`` — multi-chip sharding of the sample/mode axes over a device Mesh
   * ``config``   — hydra-compatible structured-config system (YAML + CLI overrides)

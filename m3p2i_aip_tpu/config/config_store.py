@@ -15,11 +15,9 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-import yaml
-
 from m3p2i_aip_tpu.planners.motion_planner.mppi import MPPIConfig
 from m3p2i_aip_tpu.sim.sim_config import SimConfig
-from m3p2i_aip_tpu.utils import path_utils
+from m3p2i_aip_tpu.utils import path_utils, yaml_lite
 
 
 @dataclass
@@ -100,8 +98,7 @@ def _set_dotted(cfg, dotted: str, value):
 
 def _load_group_yaml(group: str, name: str) -> dict:
     path = path_utils.get_config_path() / group / f"{name}.yaml"
-    with open(path) as f:
-        return yaml.safe_load(f) or {}
+    return yaml_lite.load(path) or {}
 
 
 def load_config(config_name: str = "config_point", overrides=None) -> ExampleConfig:
@@ -112,8 +109,7 @@ def load_config(config_name: str = "config_point", overrides=None) -> ExampleCon
     """
     cfg = ExampleConfig()
     path = path_utils.get_config_path() / f"{config_name}.yaml"
-    with open(path) as f:
-        top = yaml.safe_load(f) or {}
+    top = yaml_lite.load(path) or {}
 
     for entry in top.get("defaults", []):
         if isinstance(entry, dict):

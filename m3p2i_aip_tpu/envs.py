@@ -107,7 +107,7 @@ def _make_point_env(cfg, actors) -> Env:
         """Pack the planner observations into ONE small device array.
 
         One device->host transfer per tick instead of one per named getter —
-        load-bearing when dispatch latency dominates (remote-attached TPU).
+        load-bearing when dispatch and host-sync latency dominate the tick.
         Layout: [robot_pos(2), robot_vel(2), box_pos(2), box_quat(4),
         dynobs_contact(1)].
         """

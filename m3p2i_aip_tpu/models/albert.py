@@ -18,11 +18,12 @@ State q: [x, y, yaw, arm(7), fingers(2)] = 12.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from m3p2i_aip_tpu.models import panda_fk
+from m3p2i_aip_tpu.utils import struct
 
 WHEEL_RADIUS = 0.08  # skill_utils.apply_fk r
 WHEEL_BASE = 2 * 0.157  # skill_utils.apply_fk L
@@ -217,7 +218,7 @@ def fk(state: AlbertState):
     th = state.q[2]
     c, s = jnp.cos(th), jnp.sin(th)
     base_rot = jnp.asarray([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
-    base_pos = jnp.concatenate([state.q[:2], jnp.zeros(1)]) + base_rot @ jnp.asarray(
-        ARM_MOUNT
+    base_pos = jnp.concatenate([state.q[:2], jnp.zeros(1)]) + jnp.matmul(
+        base_rot, jnp.asarray(ARM_MOUNT), precision=jax.lax.Precision.HIGHEST
     )
     return panda_fk.fk(state.q[3:12], base_pos, base_rot=base_rot)

@@ -19,11 +19,13 @@ from typing import List
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from m3p2i_aip_tpu.models import panda_fk
 from m3p2i_aip_tpu.ops import quat as quat_ops
 from m3p2i_aip_tpu.sim.sim_config import ActorCfg, SimConfig
+from m3p2i_aip_tpu.utils import struct
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 GRAVITY = 9.8
 
@@ -179,8 +181,8 @@ def _sphere_vs_aabb(center, radius, bmin, bmax):
     one-hot masks instead of ``argmin`` + ``take_along_axis`` / ``eye[idx]``.
     Computed-index gathers inside XLA:CPU loop fusions re-evaluate their
     (here: whole-FK-chain) operands per output element — measured ~500x
-    slowdown of the vmapped step; masks fuse cleanly on both CPU and TPU
-    (VPU-friendly select ops, no dynamic addressing).
+    slowdown of the vmapped step; masks fuse cleanly on every backend
+    (elementwise select ops, no dynamic addressing).
     """
     closest = jnp.clip(center, bmin, bmax)
     diff = center - closest
@@ -257,8 +259,11 @@ def step(
         cube_prev = bpos[1]  # substep-start position (for the held velocity)
         near = jnp.linalg.norm(tip_pos - cube_pos) < params.grasp_range
         do_attach = (attached < 0.5) & gripper_closing & near
-        rel_pos = (cube_pos - hand_pos) @ hand_rot  # == hand_rot.T @ d
-        rel_rot = hand_rot.T @ quat_ops.quat_to_rotmat(bquat[1])
+        # == hand_rot.T @ d
+        rel_pos = jnp.matmul(cube_pos - hand_pos, hand_rot, precision=_HIGHEST)
+        rel_rot = jnp.matmul(
+            hand_rot.T, quat_ops.quat_to_rotmat(bquat[1]), precision=_HIGHEST
+        )
         attach_pos = jnp.where(do_attach, rel_pos, attach_pos)
         attach_rot = jnp.where(do_attach, rel_rot, attach_rot)
         attached = jnp.where(do_attach, 1.0, attached)
@@ -350,8 +355,10 @@ def step(
         bpos = new_pos
 
         # --- attached cube follows the hand ----------------------------------
-        held_pos = hand_pos + hand_rot @ attach_pos
-        held_quat = quat_ops.mat_to_quat(hand_rot @ attach_rot)
+        held_pos = hand_pos + jnp.matmul(hand_rot, attach_pos, precision=_HIGHEST)
+        held_quat = quat_ops.mat_to_quat(
+            jnp.matmul(hand_rot, attach_rot, precision=_HIGHEST)
+        )
         is_att = attached > 0.5
         # velocity of the HELD cube = hand velocity: difference against the
         # substep-START position.  Differencing against the post-integration
@@ -371,7 +378,7 @@ def step(
         # multiple reduce consumers triggers a combinatorial re-evaluation
         # blowup in XLA:CPU's fusion emitter (measured 426 ms vs 1 ms for the
         # same math per-probe at K=16).  Per-probe unrolling fuses each FK
-        # chain into exactly one consumer group on both CPU and TPU.
+        # chain into exactly one consumer group on every backend.
         probe_links = (
             links["link4"][0],
             links["link5"][0],

@@ -13,8 +13,8 @@ builds on (SURVEY.md §7.10).
 Link orientations are ROTATION MATRICES, composed by 3x3 matmuls.  This is
 deliberate and load-bearing, twice over:
 
-  * TPU: the FK chain is a sequence of small dots — MXU/VPU work XLA
-    schedules well — instead of scalar quaternion shuffles.
+  * Accelerators: the FK chain is a sequence of small dots, which XLA
+    schedules well, instead of scalar quaternion shuffles.
   * CPU: quaternion composition builds nested 4-way ``concatenate``s
     (jnp.stack per quat_mul); when such a chain is duplicated into 2+
     consumers, XLA:CPU's loop-fusion emitter scalarizes through every
@@ -124,10 +124,9 @@ def fk(q: jnp.ndarray, base_pos: jnp.ndarray, base_rot: jnp.ndarray | None = Non
     pos = jnp.broadcast_to(jnp.asarray(base_pos, dtype=q.dtype), batch + (3,))
     rot = base_rot
 
-    # full-f32 matmuls: the TPU MXU default (bf16 multiplies) costs ~5e-2
-    # absolute error by link 7, which showed up as the kernel-vs-XLA cost
-    # maxdiff (the Pallas kernel's scalar-register dots are exact f32);
-    # HIGHEST pins both paths to the same arithmetic
+    # full-f32 matmuls: a reduced-precision default (TF32 on a GPU) costs
+    # up to ~5e-2 absolute error by link 7; HIGHEST pins every backend to
+    # the same f32 arithmetic
     _hi = jax.lax.Precision.HIGHEST
     links = {}
     for j in range(7):

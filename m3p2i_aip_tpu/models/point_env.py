@@ -20,11 +20,11 @@ from typing import List
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from m3p2i_aip_tpu.ops import quat
 from m3p2i_aip_tpu.sim import pbd2d
 from m3p2i_aip_tpu.sim.sim_config import ActorCfg, SimConfig
+from m3p2i_aip_tpu.utils import struct
 
 GRAVITY = 9.8  # matches sim_params.gravity (isaacgym_wrapper.py:25)
 
@@ -306,8 +306,8 @@ def step(
     dpos, dyaw = state.dyn_pos, state.dyn_yaw
     dvel, dom = state.dyn_vel, state.dyn_om
     # Dense per-category force accumulators (robot / dynamic / static) —
-    # NO per-pass actor-index scatters: TPU scatters serialize, and the ~30
-    # of them per step dominated the vmapped rollout's runtime.  The actor-
+    # NO per-pass actor-index scatters: scatters serialize, and the ~30 of
+    # them per step dominated the vmapped rollout's runtime.  The actor-
     # indexed contact_force tensor is assembled once at the end by stacking.
     f_rob = jnp.zeros(3)
     f_dyn = jnp.zeros((D, 3))

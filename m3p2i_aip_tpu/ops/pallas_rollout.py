@@ -1,50 +1,51 @@
-"""Pallas TPU kernel: the FULL point-env MPPI rollout in one program.
+"""Pallas (Triton route) kernel: the FULL point-env MPPI rollout in one program.
 
 The XLA rollout (`MPPI._rollout`: lax.scan over T of the vmapped env step)
-spends ~10 ms per replan at K=200 x T=15 — not on FLOPs but on hundreds of
-tiny fusions shuttling [K, small] tensors through HBM every substep.  Here
-the whole rollout lives in VMEM: K rides the lane axis, every physics
-quantity is a [rows, K] vector register, and the T x substeps x pos_iters
-loop nest runs inside a single kernel with zero HBM round-trips.
+is a device loop of many small fused kernels per substep, each moving
+[K, small] tensors through device memory.  Here the whole rollout is one
+kernel: one lane (GPU thread) per sample, every physics quantity of that
+sample a register, and the T x substeps x pos_iters loop nest runs inside
+the kernel with no device-memory round trip between steps.
 
-Semantics mirror models/point_env.step (point robot only) + the
+Semantics mirror models/point_env.step (point / heijn / boxer bases) + the
 PointObjective costs (cost_functions.py parity chain), including the
-suction-force carry from the pull cost into the next step.  Numerical parity
-with the XLA path is asserted by tests/test_pallas.py on TPU.
+suction-force carry from the pull cost into the next step.  Parity with the
+XLA path: tests/test_pallas.py (interpret mode on the CPU, compiled on the
+GPU under the ``gpu`` marker).
 
-Layout: K padded to a multiple of 128 (f32 lanes).  Per-body quantities are
-SUBLANE-PACKED: the D dynamic boxes live as [D, Kp] register blocks (box i on
-sublane i) and the S statics as in-kernel [S, 1] constant columns, so each
-contact pass issues ONE packed vector op where a row-wise kernel would issue
-D (or S) — the round-2 kernels were latency-bound on exactly those [1, K]
-row loops.  Cross-body reductions (robot corrections, contact-force totals)
-are cheap sublane sums.
+Layout: grid ``(B, Kp / BLOCK)``; a program owns ``BLOCK`` samples of one
+batch element.  K is padded to a multiple of ``BLOCK``; the per-sample
+action rows (t * n_u + channel) and state rows are padded to powers of two
+(Triton's block shapes).  The task scalars and the shard's sample offset
+``k0`` are one [4] operand that each program loads itself.  The D dynamic
+boxes are unrolled in Python (box quantities are lists of [BLOCK]
+vectors); the statics are a loop over a small geometry-table operand.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-except ImportError:  # pragma: no cover
-    pl = pltpu = None
-
-from m3p2i_aip_tpu.ops.pallas_kernels import pallas_available
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pl_triton
 
 GRAVITY = 9.8
+# samples per program: small, so K=200 spreads over 7 SMs; one warp each
+BLOCK = 32
+NUM_WARPS = 1
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
 # ---------------------------------------------------------------------------
-# lane-wise planar contact math (mirrors sim/pbd2d.py on [*, K] registers)
+# lane-wise planar contact math (mirrors sim/pbd2d.py; args are [block]
+# vectors or Python floats)
 # ---------------------------------------------------------------------------
 
 
@@ -58,10 +59,10 @@ def _rot_to_world(lx, ly, c, s):
 
 
 def _circle_vs_obb(cx, cy, radius, bx, by, bc, bs, hx, hy):
-    """Circle (center [1,K], scalar radius) vs oriented box (pose [1,K] or
-    scalar consts; cos/sin bc/bs; half extents hx/hy scalars or [1,K]).
+    """Circle (center cx/cy, scalar radius) vs oriented box (pose bx/by,
+    cos/sin bc/bs, half extents hx/hy).
 
-    Returns pen [1,K], world normal (nx, ny), world contact point (px, py).
+    Returns pen, world normal (nx, ny), world contact point (px, py).
     Mirrors pbd2d.circle_vs_obb.
     """
     lx, ly = _rot_to_local(cx - bx, cy - by, bc, bs)
@@ -97,8 +98,8 @@ def _resolve(
 ):
     """One Jacobi contact projection (mirrors pbd2d.resolve_contact).
 
-    All args [1,K] or scalars.  Returns position/velocity corrections for A
-    and B plus the equivalent force on A (fx, fy).
+    Returns position/velocity corrections for A and B plus the equivalent
+    force on A (fx, fy).
     """
     active = pen > 0.0
     d = jnp.where(active, pen, 0.0)
@@ -149,9 +150,8 @@ def _resolve(
 def _corner_pens(cx, cy, cc, cs, hxa, hya, bx, by, bc, bs, hxb, hyb):
     """Penetrations of A's 4 corners against box B's dominant face.
 
-    Mirrors pbd2d.corners_vs_obb.  A pose lane-wise (cx..cs, half hxa/hya),
-    B pose lane-wise or const.  Returns (pens [4 of [1,K]], corner world
-    coords [4 of (x, y)], face normal (nx, ny) [1,K]).
+    Mirrors pbd2d.corners_vs_obb.  Returns (pens [4], corner world coords
+    [4 of (x, y)], face normal (nx, ny)).
     """
     clx, cly = _rot_to_local(cx - bx, cy - by, bc, bs)
     use_x = (jnp.abs(clx) / hxb) >= (jnp.abs(cly) / hyb)
@@ -187,22 +187,28 @@ def _corner_pens(cx, cy, cc, cs, hxa, hya, bx, by, bc, bs, hxb, hyb):
 
 
 def _rollout_kernel(
-    task_ref,  # SMEM [4]: task_id, goal_x, goal_y, k0 (global sample offset)
-    acts_ref,  # VMEM [T, n_u, Kp]
-    state_ref,  # VMEM [2*n_q + 7D, Kp]: dyn rows grouped BY FIELD
+    task_ref,  # [4]: task_id, goal_x, goal_y, k0 (global sample offset)
+    stat_ref,  # [S_p, 8]: per static x, y, cos, sin, half x, half y, friction
+    acts_ref,  # [R_a, block]: row t * n_u + c = channel c of step t
+    state_ref,  # [R_s, block]: q, qd, then dyn rows grouped BY FIELD
     #             (x*D, y*D, yaw*D, vx*D, vy*D, om*D, fric_scale*D)
-    cost_ref,  # VMEM out [T, Kp]
-    trajx_ref,  # VMEM out [T, Kp]
-    trajy_ref,  # VMEM out [T, Kp]
+    cost_ref,  # out [Tp, block]
+    trajx_ref,  # out [Tp, block]
+    trajy_ref,  # out [Tp, block]
     *,
     P,  # dict of static params (python/numpy)
+    block: int,
 ):
-    Kp = state_ref.shape[1]
     D, S = P["D"], P["S"]
     h = P["dt"] / P["substeps"]
     decay = P["decay"]
     wm_r = 1.0 / P["robot_mass"]
     rr = P["robot_radius"]
+    n_q, n_u = P["n_q"], P["n_u"]
+    rtype = P["robot_type"]
+    box, obs = P["box_slot"], P["dynobs_slot"]
+    inv_mass, inv_inertia = P["inv_mass"], P["inv_inertia"]
+    half = P["half"]
 
     # clip like the XLA dispatch (cost_functions.py lax.switch clip);
     # reposition (id 8) runs the navigation cost, NOT a clip-to-push_pull
@@ -213,101 +219,188 @@ def _rollout_kernel(
     gy = task_ref[2]
     k0 = task_ref[3]  # global sample offset of this shard (0 unsharded)
 
-    col = jax.lax.broadcasted_iota(jnp.int32, (1, Kp), 1)
+    col = pl.program_id(1) * block + jax.lax.broadcasted_iota(
+        jnp.int32, (block,), 0
+    )
     # mode split is GLOBAL-index based so a shard_map shard covering samples
-    # [k0, k0+K_loc) keeps the reference's half-batch semantics (mppi.py:397-400)
+    # [k0, k0+K_loc) keeps the reference's half-batch semantics (mppi.py)
     gcol = col.astype(jnp.float32) + k0
     mode1 = (gcol >= P["half_K"]) & (gcol < P["K"])  # second-half samples
 
-    # robot base family (point_env.py robot_type): "point" (2-dof omni),
-    # "heijn" (3-dof omni), "boxer" (2-wheel differential drive)
-    n_q = P["n_q"]
-    n_u = P["n_u"]
-    rtype = P["robot_type"]
+    # Loops over the statics (and over substeps / position iterations) are
+    # real loops, not unrolled: the kernel stays small enough to compile in
+    # seconds; the D dynamic boxes stay unrolled (D = 2 in every scene).
+    def over_statics(body, init):
+        def step(s, carry):
+            return body(tuple(stat_ref[s, c] for c in range(7)), carry)
 
-    # ---- sublane packing --------------------------------------------------
-    # Every per-dyn-box quantity lives as ONE [D, Kp] register block (box i on
-    # sublane i) instead of D separate [1, Kp] rows, and per-box constants are
-    # [D, 1] columns; the D-wide contact loops below then issue one packed
-    # vector op where the row-wise kernel issued D (TODO round-2: the kernels
-    # are latency-bound with [1, K] rows at reference K).  Statics pack the
-    # same way as [S, 1] constants broadcast to [S, Kp].
-    def const_col(vals):
-        # built from iota + scalar selects: pallas_call rejects captured
-        # ARRAY constants (jaxpr constvars), but scalar immediates are fine
-        n = len(vals)
-        r = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
-        out = jnp.zeros((n, 1), jnp.float32)
-        for i, v in enumerate(vals):
-            out = jnp.where(r == i, jnp.float32(v), out)
-        return out
+        return jax.lax.fori_loop(0, S, step, init)
 
-    def one_hot_col(i, n):
-        r = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
-        return (r == i).astype(jnp.float32)
-
-    inv_mass_d = const_col(P["inv_mass"])  # [D,1]
-    inv_inertia_d = const_col(P["inv_inertia"])
-    ang_rad_d = const_col(P["ang_rad"])
-    half_x_d = const_col([hv[0] for hv in P["half"]])
-    half_y_d = const_col([hv[1] for hv in P["half"]])
-    stat_x = const_col([sv[0] for sv in P["stat"]])  # [S,1]
-    stat_y = const_col([sv[1] for sv in P["stat"]])
-    stat_c = const_col([np.cos(sv[2]) for sv in P["stat"]])
-    stat_s = const_col([np.sin(sv[2]) for sv in P["stat"]])
-    stat_hx = const_col([sv[0] for sv in P["stat_half"]])
-    stat_hy = const_col([sv[1] for sv in P["stat_half"]])
-    stat_fric = const_col(P["stat_friction"])
-
-    # unpack state rows; dyn state arrives grouped by field
     def row(i):
-        return state_ref[i : i + 1, :]
+        return state_ref[i, :]
 
+    zero = jnp.zeros((block,), jnp.float32)
     qx, qy = row(0), row(1)
-    qyaw = row(2) if n_q == 3 else jnp.zeros((1, Kp), jnp.float32)
+    qyaw = row(2) if n_q == 3 else zero
     qdx, qdy = row(n_q), row(n_q + 1)
-    qdyaw = row(n_q + 2) if n_q == 3 else jnp.zeros((1, Kp), jnp.float32)
+    qdyaw = row(n_q + 2) if n_q == 3 else zero
     base = 2 * n_q
 
     def field(f):
-        return state_ref[base + f * D : base + (f + 1) * D, :]
+        return [row(base + f * D + i) for i in range(D)]
 
     X, Y, YAW, VX, VY, OM = (field(f) for f in range(6))
-
     # per-SAMPLE friction: base material x the state's fric_scale rows
-    # (domain randomization — point_env.step's `fric`/`mu_ground` twin;
-    # scale rows are ones when randomization is off, so this is the same
-    # [D, *] broadcastable operand the constant kernel used)
-    fric_d = const_col(P["friction"]) * field(6)  # [D, Kp]
-    mu_g_d = (fric_d + 1.0) * 0.5
+    # (domain randomization — point_env.step's `fric`/`mu_ground` twin)
+    fric_d = [P["friction"][i] * fs for i, fs in enumerate(field(6))]
+    mu_g_d = [(f + 1.0) * 0.5 for f in fric_d]
 
-    # suction ext-force carry (pull cost -> next step), zero at t=0
-    ext_rx = jnp.zeros((1, Kp), jnp.float32)
-    ext_ry = jnp.zeros((1, Kp), jnp.float32)
-    ext_bx = jnp.zeros((1, Kp), jnp.float32)
-    ext_by = jnp.zeros((1, Kp), jnp.float32)
+    def pos_iter(_, carry):
+        """One position iteration: the five Jacobi contact passes."""
+        qx, qy, qdx, qdy, X, Y, YAW, VX, VY, OM, f_obs_x, f_obs_y = carry
+        X, Y, YAW, VX, VY, OM = map(list, (X, Y, YAW, VX, VY, OM))
 
-    box = P["box_slot"]
-    obs = P["dynobs_slot"]
-    box_hot = one_hot_col(box, D)  # [D,1]
-    obs_hot = one_hot_col(obs, D)
+        # pass 1: robot circle vs every dynamic box, Jacobi — all D
+        # contacts from the PRE-pass robot pose, robot corrections summed
+        # after
+        dq = [zero, zero, zero, zero]
+        for i in range(D):
+            pen, nx, ny, px, py = _circle_vs_obb(
+                qx, qy, rr, X[i], Y[i], jnp.cos(YAW[i]),
+                jnp.sin(YAW[i]), half[i][0], half[i][1],
+            )
+            out = _resolve(
+                pen, nx, ny, px, py,
+                qx, qy, qdx, qdy, 0.0, wm_r, 0.0,
+                X[i], Y[i], VX[i], VY[i], OM[i],
+                inv_mass[i], inv_inertia[i],
+                h, (P["robot_friction"] + fric_d[i]) / 2, 1.0,
+            )
+            X[i], Y[i], YAW[i] = X[i] + out[6], Y[i] + out[7], YAW[i] + out[8]
+            VX[i], VY[i], OM[i] = VX[i] + out[9], VY[i] + out[10], OM[i] + out[11]
+            if i == obs:
+                f_obs_x = f_obs_x - out[12]
+                f_obs_y = f_obs_y - out[13]
+            dq = [dq[0] + out[0], dq[1] + out[1], dq[2] + out[3], dq[3] + out[4]]
+        qx, qy = qx + dq[0], qy + dq[1]
+        qdx, qdy = qdx + dq[2], qdy + dq[3]
 
-    def subsum(x):  # reduce a packed block to one [1, Kp] row
-        return jnp.sum(x, axis=0, keepdims=True)
+        # pass 2: dynamic vs dynamic, Jacobi from frozen poses — the corners
+        # of each box i (as A) meet every other box j (as B)
+        if D > 1:
+            X0, Y0, VX0, VY0, OM0 = list(X), list(Y), list(VX), list(VY), list(OM)
+            c0 = [jnp.cos(a) for a in YAW]
+            s0 = [jnp.sin(a) for a in YAW]
+            dd = [[zero] * 6 for _ in range(D)]
+            for i in range(D):
+                for j in range(D):
+                    if j == i:
+                        continue
+                    pens, corners, (nx, ny) = _corner_pens(
+                        X0[i], Y0[i], c0[i], s0[i], half[i][0], half[i][1],
+                        X0[j], Y0[j], c0[j], s0[j], half[j][0], half[j][1],
+                    )
+                    for pen, (wx, wy) in zip(pens, corners):
+                        out = _resolve(
+                            pen, nx, ny, wx, wy,
+                            X0[i], Y0[i], VX0[i], VY0[i], OM0[i],
+                            inv_mass[i], inv_inertia[i],
+                            X0[j], Y0[j], VX0[j], VY0[j], OM0[j],
+                            inv_mass[j], inv_inertia[j],
+                            h, (fric_d[i] + fric_d[j]) / 2, 0.5,
+                        )
+                        dd[i] = [a + b for a, b in zip(dd[i], out[0:6])]
+                        dd[j] = [a + b for a, b in zip(dd[j], out[6:12])]
+                        if i == obs:
+                            f_obs_x = f_obs_x + out[12]
+                            f_obs_y = f_obs_y + out[13]
+                        if j == obs:
+                            f_obs_x = f_obs_x - out[12]
+                            f_obs_y = f_obs_y - out[13]
+            for i in range(D):
+                X[i], Y[i], YAW[i] = X[i] + dd[i][0], Y[i] + dd[i][1], YAW[i] + dd[i][2]
+                VX[i], VY[i], OM[i] = VX[i] + dd[i][3], VY[i] + dd[i][4], OM[i] + dd[i][5]
 
-    # time loop as fori_loop (NOT unrolled: the T x substeps x pos_iters x
-    # contact-pass nest is thousands of vector statements per step already)
+        # pass 3: each dynamic box vs every static (full strength, per-corner
+        # corrections normalized by the active-corner count per static) —
+        # Jacobi per box from its pre-pass pose
+        for i in range(D):
+            x, y, vx, vy, om = X[i], Y[i], VX[i], VY[i], OM[i]
+            ci, si = jnp.cos(YAW[i]), jnp.sin(YAW[i])
+
+            def vs_static(st, carry, i=i, x=x, y=y, vx=vx, vy=vy, om=om, ci=ci, si=si):
+                acc, fx, fy = carry
+                sx, sy, sc, ss, shx, shy, sfr = st
+                pens, corners, (nx, ny) = _corner_pens(
+                    x, y, ci, si, half[i][0], half[i][1], sx, sy, sc, ss, shx, shy,
+                )
+                n_act = sum((pen > 0).astype(jnp.float32) for pen in pens)
+                relax = 1.0 / jnp.maximum(n_act, 1.0)
+                for pen, (wx, wy) in zip(pens, corners):
+                    out = _resolve(
+                        pen, nx, ny, wx, wy,
+                        x, y, vx, vy, om, inv_mass[i], inv_inertia[i],
+                        sx, sy, 0.0, 0.0, 0.0, 0.0, 0.0,
+                        h, (fric_d[i] + sfr) / 2, relax,
+                    )
+                    acc = tuple(a + b for a, b in zip(acc, out[0:6]))
+                    if i == obs:
+                        fx, fy = fx + out[12], fy + out[13]
+                return acc, fx, fy
+
+            acc, f_obs_x, f_obs_y = over_statics(
+                vs_static, ((zero,) * 6, f_obs_x, f_obs_y)
+            )
+            X[i], Y[i], YAW[i] = X[i] + acc[0], Y[i] + acc[1], YAW[i] + acc[2]
+            VX[i], VY[i], OM[i] = VX[i] + acc[3], VY[i] + acc[4], OM[i] + acc[5]
+
+        # pass 4: robot circle vs every static, Jacobi
+        def robot_vs_static(st, dq):
+            sx, sy, sc, ss, shx, shy, sfr = st
+            pen, nx, ny, px, py = _circle_vs_obb(qx, qy, rr, sx, sy, sc, ss, shx, shy)
+            out = _resolve(
+                pen, nx, ny, px, py,
+                qx, qy, qdx, qdy, 0.0, wm_r, 0.0,
+                sx, sy, 0.0, 0.0, 0.0, 0.0, 0.0,
+                h, (P["robot_friction"] + sfr) / 2, 1.0,
+            )
+            return (dq[0] + out[0], dq[1] + out[1], dq[2] + out[3], dq[3] + out[4])
+
+        dq = over_statics(robot_vs_static, (zero,) * 4)
+        qx, qy = qx + dq[0], qy + dq[1]
+        qdx, qdy = qdx + dq[2], qdy + dq[3]
+
+        # pass 5: robot vs dynamic again (immovable), Jacobi
+        dq = [zero, zero, zero, zero]
+        for i in range(D):
+            pen, nx, ny, px, py = _circle_vs_obb(
+                qx, qy, rr, X[i], Y[i], jnp.cos(YAW[i]),
+                jnp.sin(YAW[i]), half[i][0], half[i][1],
+            )
+            out = _resolve(
+                pen, nx, ny, px, py,
+                qx, qy, qdx, qdy, 0.0, wm_r, 0.0,
+                X[i], Y[i], VX[i], VY[i], OM[i], 0.0, 0.0,
+                h, 0.0, 1.0,
+            )
+            dq = [dq[0] + out[0], dq[1] + out[1], dq[2] + out[3], dq[3] + out[4]]
+        qx, qy = qx + dq[0], qy + dq[1]
+        qdx, qdy = qdx + dq[2], qdy + dq[3]
+        return (qx, qy, qdx, qdy, tuple(X), tuple(Y), tuple(YAW),
+                tuple(VX), tuple(VY), tuple(OM), f_obs_x, f_obs_y)
+
     def t_body(t, carry):
         (qx, qy, qyaw, qdx, qdy, qdyaw, X, Y, YAW, VX, VY, OM,
          ext_rx, ext_ry, ext_bx, ext_by) = carry
         # actions arrive pre-scaled (the caller applies u_scale, matching
         # MPPI._command_halton's `u_scale * act_seq` at the _rollout boundary)
-        u = [acts_ref[t, c : c + 1, :] for c in range(n_u)]
-        f_obs_x = jnp.zeros((1, Kp), jnp.float32)
-        f_obs_y = jnp.zeros((1, Kp), jnp.float32)
+        u = [acts_ref[t * n_u + c, :] for c in range(n_u)]
 
-        for _ in range(P["substeps"]):
-            # velocity integration + drive (point_env.py:288-312)
+        def substep(_, c):
+            (qx, qy, qyaw, qdx, qdy, qdyaw, X, Y, YAW, VX, VY, OM,
+             f_obs_x, f_obs_y) = c
+            X, Y, YAW, VX, VY, OM = map(list, (X, Y, YAW, VX, VY, OM))
+            # velocity integration + drive (point_env.py step)
             qdx = qdx + ext_rx * (wm_r * h)
             qdy = qdy + ext_ry * (wm_r * h)
             if rtype == "boxer":
@@ -324,186 +417,61 @@ def _rollout_kernel(
                 qdy = u[1] + (qdy - u[1]) * decay
                 if n_q == 3:  # heijn: world-frame yaw-rate channel
                     qdyaw = u[2] + (qdyaw - u[2]) * decay
-            # robot speed cap (point_env.py:310-312): without it ±500 N
-            # suction forces can tunnel the robot through wall junctions,
-            # letting the planner pick physically impossible pull plans
+            # robot speed cap: without it ±500 N suction forces can tunnel
+            # the robot through wall junctions
             qsp = jnp.sqrt(qdx * qdx + qdy * qdy)
             qcap = jnp.minimum(1.0, 6.0 / jnp.maximum(qsp, 1e-9))
             qdx = qdx * qcap
             qdy = qdy * qcap
 
-            # dyn integration, all boxes in one packed block
-            VX = VX + ext_bx * (inv_mass_d * h) * box_hot
-            VY = VY + ext_by * (inv_mass_d * h) * box_hot
-            # ground friction (pbd2d.ground_friction)
-            speed = jnp.sqrt(VX * VX + VY * VY)
-            scale = jnp.maximum(
-                0.0, 1.0 - mu_g_d * GRAVITY * h / jnp.maximum(speed, 1e-9)
-            )
-            VX, VY = VX * scale, VY * scale
-            om_scale = jnp.maximum(
-                0.0,
-                1.0 - mu_g_d * GRAVITY * h / jnp.maximum(jnp.abs(OM) * ang_rad_d, 1e-9),
-            )
-            OM = OM * om_scale
-            sp = jnp.sqrt(VX * VX + VY * VY)
-            cap = jnp.minimum(1.0, P["max_speed"] / jnp.maximum(sp, 1e-9))
-            VX, VY = VX * cap, VY * cap
-            X = X + VX * h
-            Y = Y + VY * h
-            YAW = YAW + OM * h
+            for i in range(D):
+                if i == box:
+                    VX[i] = VX[i] + ext_bx * (inv_mass[i] * h)
+                    VY[i] = VY[i] + ext_by * (inv_mass[i] * h)
+                # ground friction (pbd2d.ground_friction)
+                speed = jnp.sqrt(VX[i] * VX[i] + VY[i] * VY[i])
+                scale = jnp.maximum(
+                    0.0, 1.0 - mu_g_d[i] * GRAVITY * h / jnp.maximum(speed, 1e-9)
+                )
+                VX[i], VY[i] = VX[i] * scale, VY[i] * scale
+                om_scale = jnp.maximum(
+                    0.0,
+                    1.0 - mu_g_d[i] * GRAVITY * h
+                    / jnp.maximum(jnp.abs(OM[i]) * P["ang_rad"][i], 1e-9),
+                )
+                OM[i] = OM[i] * om_scale
+                sp = jnp.sqrt(VX[i] * VX[i] + VY[i] * VY[i])
+                cap = jnp.minimum(1.0, P["max_speed"] / jnp.maximum(sp, 1e-9))
+                VX[i], VY[i] = VX[i] * cap, VY[i] * cap
+                X[i] = X[i] + VX[i] * h
+                Y[i] = Y[i] + VY[i] * h
+                YAW[i] = YAW[i] + OM[i] * h
             qx = qx + qdx * h
             qy = qy + qdy * h
             if n_q == 3:
                 qyaw = qyaw + qdyaw * h
 
-            for _ in range(P["pos_iters"]):
-                # pass 1: robot circle vs ALL dynamic boxes in one packed op
-                # — Jacobi: all D contacts evaluated from the PRE-pass robot
-                # pose, robot corrections sublane-summed after (point_env.step
-                # pass 1 semantics; each box has one contact, so its packed
-                # correction applies directly)
-                c, s = jnp.cos(YAW), jnp.sin(YAW)
-                pen, nx, ny, px, py = _circle_vs_obb(
-                    qx, qy, rr, X, Y, c, s, half_x_d, half_y_d
+            (qx, qy, qdx, qdy, X, Y, YAW, VX, VY, OM, f_obs_x, f_obs_y) = (
+                jax.lax.fori_loop(
+                    0, P["pos_iters"], pos_iter,
+                    (qx, qy, qdx, qdy, tuple(X), tuple(Y), tuple(YAW),
+                     tuple(VX), tuple(VY), tuple(OM), f_obs_x, f_obs_y),
                 )
-                out = _resolve(
-                    pen, nx, ny, px, py,
-                    qx, qy, qdx, qdy, 0.0, wm_r, 0.0,
-                    X, Y, VX, VY, OM, inv_mass_d, inv_inertia_d,
-                    h, (P["robot_friction"] + fric_d) / 2, 1.0,
-                )
-                X, Y, YAW = X + out[6], Y + out[7], YAW + out[8]
-                VX, VY, OM = VX + out[9], VY + out[10], OM + out[11]
-                f_obs_x = f_obs_x - out[12][obs : obs + 1, :]
-                f_obs_y = f_obs_y - out[13][obs : obs + 1, :]
-                qx, qy = qx + subsum(out[0]), qy + subsum(out[1])
-                qdx, qdy = qdx + subsum(out[3]), qdy + subsum(out[4])
-
-                # pass 2: dynamic vs dynamic, Jacobi from frozen poses — for
-                # each box i (as A), its corners meet ALL other boxes packed
-                # on sublanes (row j = box j as B); the i==j self-pair is
-                # masked inactive
-                if D > 1:
-                    X0, Y0, YAW0, VX0, VY0, OM0 = X, Y, YAW, VX, VY, OM
-                    c0, s0 = jnp.cos(YAW0), jnp.sin(YAW0)
-                    dX = jnp.zeros((D, Kp), jnp.float32)
-                    dY, dYAW = dX, dX
-                    dVX, dVY, dOM = dX, dX, dX
-                    for i in range(D):
-                        i_hot = one_hot_col(i, D)
-                        not_i = 1.0 - i_hot
-                        xi, yi = X0[i : i + 1, :], Y0[i : i + 1, :]
-                        ci, si = c0[i : i + 1, :], s0[i : i + 1, :]
-                        vxi, vyi = VX0[i : i + 1, :], VY0[i : i + 1, :]
-                        omi = OM0[i : i + 1, :]
-                        pens, corners, (nx, ny) = _corner_pens(
-                            xi, yi, ci, si, P["half"][i][0], P["half"][i][1],
-                            X0, Y0, c0, s0, half_x_d, half_y_d,
-                        )
-                        dAx = dAy = dAyaw = dAvx = dAvy = dAom = 0.0
-                        for pen, (wx, wy) in zip(pens, corners):
-                            pen = jnp.where(not_i > 0, pen, -1.0)  # mask self
-                            out = _resolve(
-                                pen, nx, ny, wx, wy,
-                                xi, yi, vxi, vyi, omi,
-                                P["inv_mass"][i], P["inv_inertia"][i],
-                                X0, Y0, VX0, VY0, OM0,
-                                inv_mass_d, inv_inertia_d,
-                                h, (fric_d[i : i + 1, :] + fric_d) / 2, 0.5,
-                            )
-                            dAx, dAy, dAyaw = dAx + subsum(out[0]), dAy + subsum(out[1]), dAyaw + subsum(out[2])
-                            dAvx, dAvy, dAom = dAvx + subsum(out[3]), dAvy + subsum(out[4]), dAom + subsum(out[5])
-                            dX, dY, dYAW = dX + out[6], dY + out[7], dYAW + out[8]
-                            dVX, dVY, dOM = dVX + out[9], dVY + out[10], dOM + out[11]
-                            if i == obs:
-                                f_obs_x = f_obs_x + subsum(out[12])
-                                f_obs_y = f_obs_y + subsum(out[13])
-                            f_obs_x = f_obs_x - out[12][obs : obs + 1, :]
-                            f_obs_y = f_obs_y - out[13][obs : obs + 1, :]
-                        dX = dX + i_hot * dAx
-                        dY = dY + i_hot * dAy
-                        dYAW = dYAW + i_hot * dAyaw
-                        dVX = dVX + i_hot * dAvx
-                        dVY = dVY + i_hot * dAvy
-                        dOM = dOM + i_hot * dAom
-                    X, Y, YAW = X + dX, Y + dY, YAW + dYAW
-                    VX, VY, OM = VX + dVX, VY + dVY, OM + dOM
-
-                # pass 3: each dynamic box vs ALL statics packed on sublanes
-                # (full strength, per-corner corrections normalized by the
-                # active-corner count per static) — Jacobi per box: all S x 4
-                # contacts from the pre-pass box pose, sublane-summed after
-                # (point_env.step pass 3)
-                newXYZ = []
-                cD, sD = jnp.cos(YAW), jnp.sin(YAW)
-                for i in range(D):
-                    x, y = X[i : i + 1, :], Y[i : i + 1, :]
-                    ci, si = cD[i : i + 1, :], sD[i : i + 1, :]
-                    vx, vy = VX[i : i + 1, :], VY[i : i + 1, :]
-                    om = OM[i : i + 1, :]
-                    pens, corners, (nx, ny) = _corner_pens(
-                        x, y, ci, si, P["half"][i][0], P["half"][i][1],
-                        stat_x, stat_y, stat_c, stat_s, stat_hx, stat_hy,
-                    )
-                    n_act = sum((pen > 0).astype(jnp.float32) for pen in pens)
-                    relax = 1.0 / jnp.maximum(n_act, 1.0)
-                    ddx = ddy = ddyaw = ddvx = ddvy = ddom = 0.0
-                    for pen, (wx, wy) in zip(pens, corners):
-                        out = _resolve(
-                            pen, nx, ny, wx, wy,
-                            x, y, vx, vy, om,
-                            P["inv_mass"][i], P["inv_inertia"][i],
-                            stat_x, stat_y, 0.0, 0.0, 0.0, 0.0, 0.0,
-                            h, (fric_d[i : i + 1, :] + stat_fric) / 2, relax,
-                        )
-                        ddx, ddy, ddyaw = ddx + subsum(out[0]), ddy + subsum(out[1]), ddyaw + subsum(out[2])
-                        ddvx, ddvy, ddom = ddvx + subsum(out[3]), ddvy + subsum(out[4]), ddom + subsum(out[5])
-                        if i == obs:
-                            f_obs_x = f_obs_x + subsum(out[12])
-                            f_obs_y = f_obs_y + subsum(out[13])
-                    newXYZ.append((ddx, ddy, ddyaw, ddvx, ddvy, ddom))
-                for i, (ddx, ddy, ddyaw, ddvx, ddvy, ddom) in enumerate(newXYZ):
-                    i_hot = one_hot_col(i, D)
-                    X = X + i_hot * ddx
-                    Y = Y + i_hot * ddy
-                    YAW = YAW + i_hot * ddyaw
-                    VX = VX + i_hot * ddvx
-                    VY = VY + i_hot * ddvy
-                    OM = OM + i_hot * ddom
-
-                # pass 4: robot circle vs ALL statics in one packed op
-                pen, nx, ny, px, py = _circle_vs_obb(
-                    qx, qy, rr, stat_x, stat_y, stat_c, stat_s, stat_hx, stat_hy
-                )
-                out = _resolve(
-                    pen, nx, ny, px, py,
-                    qx, qy, qdx, qdy, 0.0, wm_r, 0.0,
-                    stat_x, stat_y, 0.0, 0.0, 0.0, 0.0, 0.0,
-                    h, (P["robot_friction"] + stat_fric) / 2, 1.0,
-                )
-                qx, qy = qx + subsum(out[0]), qy + subsum(out[1])
-                qdx, qdy = qdx + subsum(out[3]), qdy + subsum(out[4])
-
-                # pass 5: robot vs dynamic again (immovable), one packed op
-                c, s = jnp.cos(YAW), jnp.sin(YAW)
-                pen, nx, ny, px, py = _circle_vs_obb(
-                    qx, qy, rr, X, Y, c, s, half_x_d, half_y_d
-                )
-                out = _resolve(
-                    pen, nx, ny, px, py,
-                    qx, qy, qdx, qdy, 0.0, wm_r, 0.0,
-                    X, Y, VX, VY, OM, 0.0, 0.0,
-                    h, 0.0, 1.0,
-                )
-                qx, qy = qx + subsum(out[0]), qy + subsum(out[1])
-                qdx, qdy = qdx + subsum(out[3]), qdy + subsum(out[4])
+            )
 
             # closed-arena invariant (point_env.py arena_bound clamp)
             if P["arena_bound"] > 0.0:
                 lim = P["arena_bound"] - rr
                 qx = jnp.clip(qx, -lim, lim)
                 qy = jnp.clip(qy, -lim, lim)
+            return (qx, qy, qyaw, qdx, qdy, qdyaw, X, Y, YAW, VX, VY, OM,
+                    f_obs_x, f_obs_y)
+
+        (qx, qy, qyaw, qdx, qdy, qdyaw, X, Y, YAW, VX, VY, OM,
+         f_obs_x, f_obs_y) = jax.lax.fori_loop(
+            0, P["substeps"], substep,
+            (qx, qy, qyaw, qdx, qdy, qdyaw, X, Y, YAW, VX, VY, OM, zero, zero),
+        )
 
         # ------------------------------------------------------------- cost
         # (parity: PointObjective.compute; mode flag = second half of K)
@@ -511,8 +479,7 @@ def _rollout_kernel(
         coll = jnp.abs(f_obs_x / n_norm) + jnp.abs(f_obs_y / n_norm)
         motion_cost = jnp.where(coll > 0.1, 1000.0, 0.0)
 
-        bx_ = X[box : box + 1, :]
-        by_ = Y[box : box + 1, :]
+        bx_, by_ = X[box], Y[box]
         r2bx, r2by = qx - bx_, qy - by_
         b2gx, b2gy = gx - bx_, gy - by_
         d_rb = jnp.sqrt(r2bx * r2bx + r2by * r2by)
@@ -544,12 +511,12 @@ def _rollout_kernel(
         s_rx = jnp.where(off, 0.0, -fx)
         s_ry = jnp.where(off, 0.0, -fy)
         vel_cost = jnp.where(towards & (d_rb <= 0.5), 0.6, 0.0)
-        # wall-crush penalty (extension, mirrors PointObjective._wall_crush):
-        # max robot-circle penetration into the statics, packed over S
-        penw, _, _, _, _ = _circle_vs_obb(
-            qx, qy, rr, stat_x, stat_y, stat_c, stat_s, stat_hx, stat_hy
+        # wall-crush penalty (mirrors PointObjective._wall_crush): max
+        # robot-circle penetration into the statics
+        crush_pen = over_statics(
+            lambda st, m: jnp.maximum(m, _circle_vs_obb(qx, qy, rr, *st[:6])[0]),
+            jnp.full((block,), -jnp.inf, jnp.float32),
         )
-        crush_pen = jnp.max(penw, axis=0, keepdims=True)
         if P["arena_bound"] > 0.0:
             # boundary contact counts as crush (PointObjective._pull).
             # 5 cm margin: box<->robot contact can hold the puller ~2 cm off
@@ -562,9 +529,7 @@ def _rollout_kernel(
                 # pocket-goal endgame veto (PointObjective._pull, diff-drive
                 # only): flip the arbitration to push BEFORE a nonholonomic
                 # puller wedges itself between box and wall
-                pocket_lim = P["arena_bound"] - (
-                    2.0 * rr + P["half"][box][0]
-                )
+                pocket_lim = P["arena_bound"] - (2.0 * rr + half[box][0])
                 goal_in_pocket = (
                     jnp.maximum(jnp.abs(gx), jnp.abs(gy)) > pocket_lim
                 )
@@ -585,17 +550,17 @@ def _rollout_kernel(
 
         # ext forces for the NEXT step: pull applies them to every sample
         # (mode-gated inside `off` when multi-modal); push_pull applies them
-        # to the pull half only (cost_functions.py:62-89 + the push_pull
-        # mode-masked ext in PointObjective.compute)
+        # to the pull half only (the push_pull mode-masked ext in
+        # PointObjective.compute)
         sel = is_pull + is_pp * mode1.astype(jnp.float32)
         ext_bx = s_bx * sel
         ext_by = s_by * sel
         ext_rx = s_rx * sel
         ext_ry = s_ry * sel
 
-        cost_ref[pl.ds(t, 1), :] = cost
-        trajx_ref[pl.ds(t, 1), :] = qx
-        trajy_ref[pl.ds(t, 1), :] = qy
+        cost_ref[t, :] = cost
+        trajx_ref[t, :] = qx
+        trajy_ref[t, :] = qy
         return (qx, qy, qyaw, qdx, qdy, qdyaw, X, Y, YAW, VX, VY, OM,
                 ext_rx, ext_ry, ext_bx, ext_by)
 
@@ -603,8 +568,19 @@ def _rollout_kernel(
         0,
         P["T"],
         t_body,
-        (qx, qy, qyaw, qdx, qdy, qdyaw, X, Y, YAW, VX, VY, OM,
-         ext_rx, ext_ry, ext_bx, ext_by),
+        (qx, qy, qyaw, qdx, qdy, qdyaw,
+         tuple(X), tuple(Y), tuple(YAW), tuple(VX), tuple(VY), tuple(OM),
+         zero, zero, zero, zero),
+    )
+
+
+def rollout_kernel_supported(env_params) -> bool:
+    """The kernel covers the point-family scenes with a box and a dyn-obs."""
+    names = list(env_params.actor_names)
+    return (
+        env_params.robot_type in ("point", "heijn", "boxer")
+        and "box" in names
+        and "dyn-obs" in names
     )
 
 
@@ -619,26 +595,23 @@ def make_point_rollout(
 ):
     """Build the fused rollout callable for a point-robot scene.
 
-    Returns ``rollout(sim_state_k, acts, task) -> (cost_horizon [K, T],
-    traj_points [K, T, 2])`` — a drop-in for ``MPPI._rollout`` (acts arrive
-    already u_scale-scaled).  All K rollouts must start from the same state
-    (the planner broadcasts the real state, reactive_tamp.py:45-48 parity).
-    Returns None when Pallas/TPU or the scene shape is unsupported.
-    ``interpret=True`` builds the kernel for the Pallas interpreter so the
-    CPU suite can check kernel-vs-XLA cost/trajectory parity without a TPU
-    (single-sources the drift check the TPU-gated tests otherwise own).
+    Returns ``rollout(sim_state_k, acts, task, k0=None) -> (cost_horizon
+    [K, T], traj_points [K, T, 2])`` — a drop-in for ``MPPI._rollout`` (acts
+    arrive already u_scale-scaled).  All K rollouts must start from the same
+    state (the planner broadcasts the real state).  ``interpret=True`` runs
+    the kernel in the Pallas interpreter (CPU tests only).  Raises
+    ``ValueError`` for a scene the kernel does not cover
+    (see :func:`rollout_kernel_supported`).
     """
-    if not (
-        (pallas_available() or interpret)
-        and env_params.robot_type in ("point", "heijn", "boxer")
-    ):
-        return None
+    if not rollout_kernel_supported(env_params):
+        raise ValueError(
+            "the point rollout kernel needs a point/heijn/boxer scene with "
+            "a 'box' and a 'dyn-obs' actor"
+        )
 
     D = int(env_params.dyn_half.shape[0])
     S = int(env_params.stat_pos.shape[0])
     names = list(env_params.actor_names)
-    if "box" not in names or "dyn-obs" not in names:
-        return None
     box_slot = env_params.dyn_actor_idx.index(names.index("box"))
     dynobs_slot = env_params.dyn_actor_idx.index(names.index("dyn-obs"))
 
@@ -646,6 +619,8 @@ def make_point_rollout(
     stat_pos = np.asarray(env_params.stat_pos)
     stat_yaw = np.asarray(env_params.stat_yaw)
     stat_half = np.asarray(env_params.stat_half)
+    n_q = 3 if env_params.robot_type in ("heijn", "boxer") else 2
+    n_u = 3 if env_params.robot_type == "heijn" else 2
 
     P = dict(
         D=D,
@@ -675,154 +650,125 @@ def make_point_rollout(
         kp_suction=float(kp_suction),
         robot_type=env_params.robot_type,
         arena_bound=float(env_params.arena_bound),
-        n_q=3 if env_params.robot_type in ("heijn", "boxer") else 2,
-        n_u=3 if env_params.robot_type == "heijn" else 2,
+        n_q=n_q,
+        n_u=n_u,
         wheel_radius=float(env_params.wheel_radius),
         wheel_base=float(env_params.wheel_base),
         boxer_continuous_align=bool(boxer_continuous_align),
     )
-    # pallas_call construction is memoized per LOCAL sample count so the same
-    # rollout callable works unsharded (K_loc == K) and inside a shard_map
-    # shard (K_loc == K / mesh_size) — SURVEY.md §2.2 "rollout batch
-    # parallelism ... optionally shard_map/pjit over a sample-axis mesh".
+    Tp = _next_pow2(T)
+    n_act_rows = _next_pow2(T * n_u)
+    n_state = 2 * n_q + 7 * D  # +D: per-sample fric_scale rows
+    n_state_rows = _next_pow2(n_state)
+    # static geometry table, one row per static: x, y, cos, sin, half x,
+    # half y, friction (rows and columns padded to powers of two)
+    stat_tab = np.zeros((_next_pow2(max(S, 1)), 8), np.float32)
+    for i, ((sx, sy, syaw), (hx, hy), fr) in enumerate(
+        zip(P["stat"], P["stat_half"], P["stat_friction"])
+    ):
+        stat_tab[i, :7] = (sx, sy, np.cos(syaw), np.sin(syaw), hx, hy, fr)
+
+    # one pallas_call per (batch, LOCAL sample count): the same callable
+    # serves unsharded (K_loc == K), batched (B > 1) and shard_map shards
+    # (K_loc == K / mesh_size)
     _calls = {}
 
-    def _get_call(K_loc: int):
-        if K_loc not in _calls:
-            Kp = _round_up(K_loc, 128)
-            # a NAMED closure, not functools.partial: pallas derives the
-            # kernel / mosaic module name from the callable, and a partial
-            # stringifies with its memory address — which made the
-            # persistent-compilation-cache key unstable across processes
-            # (every run recompiled the fused tick)
-            def point_rollout_kernel(*refs):
-                return _rollout_kernel(*refs, P=P)
+    def _get_call(B: int, K_loc: int):
+        key = (B, K_loc)
+        if key not in _calls:
+            Kp = _round_up(K_loc, BLOCK)
 
-            _calls[K_loc] = (
+            # a NAMED closure, not functools.partial: pallas derives the
+            # kernel name from the callable, and a partial's repr embeds a
+            # memory address (unstable persistent-compilation-cache key)
+            def point_rollout_kernel(*refs):
+                return _rollout_kernel(*refs, P=P, block=BLOCK)
+
+            out = jax.ShapeDtypeStruct((B, Tp, Kp), jnp.float32)
+            out_spec = pl.BlockSpec((None, Tp, BLOCK), lambda b, k: (b, 0, k))
+            _calls[key] = (
                 pl.pallas_call(
                     point_rollout_kernel,
-                    out_shape=(
-                        jax.ShapeDtypeStruct((T, Kp), jnp.float32),
-                        jax.ShapeDtypeStruct((T, Kp), jnp.float32),
-                        jax.ShapeDtypeStruct((T, Kp), jnp.float32),
-                    ),
+                    grid=(B, Kp // BLOCK),
+                    out_shape=(out, out, out),
                     in_specs=[
-                        pl.BlockSpec(memory_space=pltpu.SMEM),
-                        pl.BlockSpec(memory_space=pltpu.VMEM),
-                        pl.BlockSpec(memory_space=pltpu.VMEM),
+                        pl.BlockSpec((None, 4), lambda b, k: (b, 0)),
+                        pl.BlockSpec(stat_tab.shape, lambda b, k: (0, 0)),
+                        pl.BlockSpec((None, n_act_rows, BLOCK), lambda b, k: (b, 0, k)),
+                        pl.BlockSpec((None, n_state_rows, BLOCK), lambda b, k: (b, 0, k)),
                     ],
-                    out_specs=(
-                        pl.BlockSpec(memory_space=pltpu.VMEM),
-                        pl.BlockSpec(memory_space=pltpu.VMEM),
-                        pl.BlockSpec(memory_space=pltpu.VMEM),
+                    out_specs=(out_spec, out_spec, out_spec),
+                    backend="triton",
+                    compiler_params=pl_triton.CompilerParams(
+                        num_warps=NUM_WARPS, num_stages=1
                     ),
                     interpret=interpret,
                 ),
                 Kp,
             )
-        return _calls[K_loc]
-
-    n_rows = 2 * P["n_q"] + 7 * D  # +D: per-sample fric_scale rows
+        return _calls[key]
 
     def _pack(sim_state_k, acts, task, k0v, Kp):
-        """(task_vec [4], acts_p [T, n_u, Kp], state_packed [n_rows, Kp])."""
+        """(task_vec [4], acts_p [n_act_rows, Kp], state_p [n_state_rows, Kp])
+        for ONE batch element."""
         # single start state (all K identical by construction — EXCEPT the
         # per-sample fric_scale domain-randomization rows, packed below)
         s0 = jax.tree_util.tree_map(lambda x: x[0], sim_state_k)
-        n_q, n_u = P["n_q"], P["n_u"]
         K_loc = acts.shape[0]
         rows = [s0.q[i] for i in range(n_q)] + [s0.qd[i] for i in range(n_q)]
-        # dyn rows grouped BY FIELD (all x, all y, ...) so the kernel reads
-        # each field as one contiguous [D, Kp] sublane-packed block
+        # dyn rows grouped BY FIELD (all x, all y, ...)
         rows += [s0.dyn_pos[i, 0] for i in range(D)]
         rows += [s0.dyn_pos[i, 1] for i in range(D)]
         rows += [s0.dyn_yaw[i] for i in range(D)]
         rows += [s0.dyn_vel[i, 0] for i in range(D)]
         rows += [s0.dyn_vel[i, 1] for i in range(D)]
         rows += [s0.dyn_om[i] for i in range(D)]
-        state_packed = jnp.broadcast_to(
-            jnp.stack(rows)[:, None], (n_rows - D, Kp)
-        ).astype(jnp.float32)
+        state_p = jnp.zeros((n_state_rows, Kp), jnp.float32)
+        state_p = state_p.at[: n_state - D].set(
+            jnp.broadcast_to(jnp.stack(rows)[:, None], (n_state - D, Kp))
+        )
         # per-sample friction scale [K_loc, D] -> [D, Kp] rows (pad lanes 1.0)
-        fs_rows = jnp.ones((D, Kp), jnp.float32).at[:, :K_loc].set(
+        fs = jnp.ones((D, Kp), jnp.float32).at[:, :K_loc].set(
             jnp.swapaxes(sim_state_k.fric_scale.astype(jnp.float32), 0, 1)
         )
-        state_packed = jnp.concatenate([state_packed, fs_rows], axis=0)
+        state_p = state_p.at[n_state - D : n_state].set(fs)
 
-        acts_t = jnp.swapaxes(acts, 0, 1)  # [T, K_loc, nu]
-        acts_p = jnp.zeros((T, n_u, Kp), jnp.float32)
-        acts_p = acts_p.at[:, :, :K_loc].set(jnp.swapaxes(acts_t, 1, 2))
+        # [K_loc, T, n_u] -> rows t * n_u + c
+        acts_rows = jnp.transpose(acts, (1, 2, 0)).reshape(T * n_u, K_loc)
+        acts_p = jnp.zeros((n_act_rows, Kp), jnp.float32)
+        acts_p = acts_p.at[: T * n_u, :K_loc].set(acts_rows.astype(jnp.float32))
 
         task_vec = jnp.stack(
             [task.task_id.astype(jnp.float32), task.goal[0], task.goal[1], k0v]
         )
-        return task_vec, acts_p, state_packed
+        return task_vec, acts_p, state_p
 
     def _unpack(cost, tx, ty, K_loc):
-        cost_horizon = jnp.swapaxes(cost[:, :K_loc], 0, 1)  # [K_loc, T]
-        tps = jnp.stack([tx[:, :K_loc], ty[:, :K_loc]], axis=-1)
+        cost_horizon = jnp.swapaxes(cost[:T, :K_loc], 0, 1)  # [K_loc, T]
+        tps = jnp.stack([tx[:T, :K_loc], ty[:T, :K_loc]], axis=-1)
         return cost_horizon, jnp.swapaxes(tps, 0, 1)
 
+    def _batched(sim_state_k, acts, task, k0v):
+        """Every argument carries a leading batch axis B."""
+        B, K_loc = acts.shape[0], acts.shape[1]
+        call, Kp = _get_call(B, K_loc)
+        tv, ap, sp = jax.vmap(lambda s, a, t: _pack(s, a, t, k0v, Kp))(
+            sim_state_k, acts, task
+        )
+        cost, tx, ty = call(tv, jnp.asarray(stat_tab), ap, sp)  # [B, Tp, Kp] each
+        return jax.vmap(lambda c, x, y: _unpack(c, x, y, K_loc))(cost, tx, ty)
+
     def _single(sim_state_k, acts, task, k0):
-        K_loc = acts.shape[0]
-        call, Kp = _get_call(K_loc)
         k0v = jnp.zeros((), jnp.float32) if k0 is None else jnp.asarray(k0, jnp.float32)
-        task_vec, acts_p, state_packed = _pack(sim_state_k, acts, task, k0v, Kp)
-        cost, tx, ty = call(task_vec, acts_p, state_packed)
-        return _unpack(cost, tx, ty, K_loc)
+        add_b = lambda x: jnp.asarray(x)[None]
+        ch, tps = _batched(
+            jax.tree.map(add_b, sim_state_k), acts[None],
+            jax.tree.map(add_b, task), k0v,
+        )
+        return ch[0], tps[0]
 
-    # ------------------------------------------------------- batched variant
     # A jax.vmap over the rollout (the vmapped multi-seed runner,
-    # tamp/batch_loop.py) dispatches ONE kernel over a grid=(B,): block b of
-    # the folded [B*T, ...] operands is batch element b's full rollout, and
-    # the per-batch task scalars are read through a SmemRowView of the
-    # [B, 4] SMEM matrix (vmap of the unbatched call would batch the SMEM
-    # vector into an illegal (B, 4) block).
-    from m3p2i_aip_tpu.ops.pallas_kernels import SmemRowView
-
-    _bcalls = {}
-
-    def _get_batched_call(B: int, K_loc: int):
-        key = (B, K_loc)
-        if key not in _bcalls:
-            Kp = _round_up(K_loc, 128)
-            n_u = P["n_u"]
-
-            def point_rollout_kernel_batched(task_ref, *refs):
-                return _rollout_kernel(
-                    SmemRowView(task_ref, pl.program_id(0)), *refs, P=P
-                )
-
-            # The batch is a LEADING SQUEEZED block dim (None): the kernel
-            # refs keep their exact single-program shapes, and the block's
-            # last two dims equal the array's (Mosaic requires last-two dims
-            # 8/128-divisible OR full — T=15 blocks of a [B*T, Kp] layout
-            # fail that on real TPU; interpret mode is laxer)
-            _bcalls[key] = (
-                pl.pallas_call(
-                    point_rollout_kernel_batched,
-                    grid=(B,),
-                    out_shape=(
-                        jax.ShapeDtypeStruct((B, T, Kp), jnp.float32),
-                        jax.ShapeDtypeStruct((B, T, Kp), jnp.float32),
-                        jax.ShapeDtypeStruct((B, T, Kp), jnp.float32),
-                    ),
-                    in_specs=[
-                        pl.BlockSpec(memory_space=pltpu.SMEM),
-                        pl.BlockSpec((None, T, n_u, Kp), lambda b: (b, 0, 0, 0)),
-                        pl.BlockSpec((None, n_rows, Kp), lambda b: (b, 0, 0)),
-                    ],
-                    out_specs=(
-                        pl.BlockSpec((None, T, Kp), lambda b: (b, 0, 0)),
-                        pl.BlockSpec((None, T, Kp), lambda b: (b, 0, 0)),
-                        pl.BlockSpec((None, T, Kp), lambda b: (b, 0, 0)),
-                    ),
-                    interpret=interpret,
-                ),
-                Kp,
-            )
-        return _bcalls[key]
-
+    # tamp/batch_loop.py) dispatches ONE kernel over grid (B, Kp / block)
     from jax.custom_batching import custom_vmap
 
     @custom_vmap
@@ -840,15 +786,9 @@ def make_point_rollout(
         sim_state_k = jax.tree.map(bc, sim_state_k, in_batched[0])
         acts = bc(acts, in_batched[1])
         task = jax.tree.map(bc, task, in_batched[2])
-        K_loc = acts.shape[1]
-        call, Kp = _get_batched_call(B, K_loc)
-        zero = jnp.zeros((), jnp.float32)  # k0: batched mode never shards K
-        tv, ap, sp = jax.vmap(lambda s, a, t: _pack(s, a, t, zero, Kp))(
-            sim_state_k, acts, task
-        )
-        cost, tx, ty = call(tv, ap, sp)  # [B, T, Kp] each
-        ch, tps = jax.vmap(lambda c, x, y: _unpack(c, x, y, K_loc))(cost, tx, ty)
-        return (ch, tps), (True, True)
+        # k0 = 0: batched mode never shards K
+        out = _batched(sim_state_k, acts, task, jnp.zeros((), jnp.float32))
+        return out, (True, True)
 
     def rollout(sim_state_k, acts, task, k0=None):
         """``k0`` = this shard's global sample offset (None/0 unsharded)."""

@@ -10,7 +10,10 @@ All functions take quaternions shaped ``[..., 4]`` with components ordered
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def quat_to_rotmat(q: jnp.ndarray) -> jnp.ndarray:
@@ -165,7 +168,7 @@ def general_ori_cube2goal(cube_q: jnp.ndarray, goal_q: jnp.ndarray) -> jnp.ndarr
     cr = quat_to_rotmat(cube_q)  # [..., 3, 3] columns are cube axes
     gr = quat_to_rotmat(goal_q)
     # dots[..., i, j] = <goal axis i, cube axis j>
-    dots = jnp.einsum("...ki,...kj->...ij", gr, cr)
+    dots = jnp.einsum("...ki,...kj->...ij", gr, cr, precision=_HIGHEST)
     best = 1.0 - jnp.max(jnp.abs(dots), axis=-1)  # [..., 3] per goal axis
     return best[..., 0] + best[..., 1]
 
@@ -198,7 +201,9 @@ def general_ori_ee2cube_mat(
     )  # [..., 3(axis), 3(xyz)]
 
     if tilt_value == 0.0:
-        cos_z = jnp.abs(jnp.einsum("...j,...aj->...a", ee_z, cube_axes))
+        cos_z = jnp.abs(
+            jnp.einsum("...j,...aj->...a", ee_z, cube_axes, precision=_HIGHEST)
+        )
         cost_z = jnp.min(1.0 - cos_z, axis=-1)
     else:
         # Reference picks the axis via the argmax of sample 0's axes
@@ -211,6 +216,8 @@ def general_ori_ee2cube_mat(
         )[..., 0, :]
         cost_z = jnp.abs(tilt_value - jnp.sum(ee_z * sel, axis=-1))
 
-    cos_y = jnp.abs(jnp.einsum("...j,...aj->...a", ee_y, cube_axes))
+    cos_y = jnp.abs(
+        jnp.einsum("...j,...aj->...a", ee_y, cube_axes, precision=_HIGHEST)
+    )
     cost_y = jnp.min(1.0 - cos_y, axis=-1)
     return cost_z + cost_y

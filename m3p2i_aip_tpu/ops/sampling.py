@@ -1,6 +1,6 @@
 """Quasi-random (Halton) sampling for MPPI control perturbations.
 
-TPU-native replacement for the reference's sampling stack
+Replacement for the reference's sampling stack
 (``src/m3p2i_aip/utils/mppi_utils.py:50-104``), which relied on the C++
 ``ghalton`` package for generalized (scrambled) Halton sequences plus a pure
 van-der-Corput fallback.  Here everything is vectorized numpy, computed ONCE at

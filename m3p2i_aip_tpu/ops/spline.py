@@ -5,10 +5,10 @@ smoothing spline, one host-side fit per (sample, action-dim) — K*nu calls to
 ``si.splrep``/``si.splev`` (``src/m3p2i_aip/utils/skill_utils.py:9-22``, invoked
 in a python double loop at ``mppi.py:474-478``).
 
-For a fixed knot vector the knots -> horizon map is LINEAR, so on TPU we
+For a fixed knot vector the knots -> horizon map is LINEAR, so we
 precompute a single basis matrix M [T, n_knots] once at init and evaluate all
-K*nu splines as one batched matmul ``samples = knots @ M.T`` (MXU-friendly,
-zero host work).  The smoothing parameter plays the role of scipy's ``s``:
+K*nu splines as one batched matmul ``samples = knots @ M.T`` (zero host
+work).  The smoothing parameter plays the role of scipy's ``s``:
 a small second-difference penalty on the control points.
 """
 from __future__ import annotations

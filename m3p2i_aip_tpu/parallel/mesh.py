@@ -3,15 +3,15 @@
 Design (SURVEY.md §2.2, §5 "Distributed communication backend"): the K
 rollout samples are embarrassingly parallel through the dynamics scan; only
 the distribution update needs cross-sample reductions (min / sum / argmax of
-the [K] cost vector — a few scalars of ICI traffic per replan).  So the
+the [K] cost vector — a few scalars of collective traffic per replan).  So the
 sharding story is: 1-D mesh over the sample axis, GSPMD auto-partitioning from
 one ``with_sharding_constraint`` on the sampled action tensor.  M3P2I's two
 modes live in the two halves of K (mppi.py:397-400), so an even device count
 also splits cleanly mode-major: devices [0, n/2) carry mode 0, the rest mode 1,
 and per-mode masked reductions stay local-heavy.
 
-Multi-host fleets would extend the same mesh over DCN; nothing here assumes
-single-host except the default device list.
+The mesh is a flat 1-D device list: the cards of one host are joined all to
+all (NVLink), so the layout follows the algorithm alone.
 """
 from __future__ import annotations
 

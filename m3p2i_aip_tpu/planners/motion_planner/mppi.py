@@ -31,7 +31,6 @@ from typing import Callable, List, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from m3p2i_aip_tpu.ops import (
     bspline_interp_matrix,
@@ -41,6 +40,12 @@ from m3p2i_aip_tpu.ops import (
     savgol_matrix,
     scale_ctrl,
 )
+from m3p2i_aip_tpu.utils import struct
+
+# f32 contractions that feed the plan run at full f32 precision: on a GPU
+# the default may be TF32 (~3 decimal digits), which drifts the plan away
+# from the CPU result
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclass
@@ -54,7 +59,7 @@ class MPPIConfig:
     sampling_method: str = "halton"
     noise_sigma: Optional[List[List[float]]] = None
     noise_mu: Optional[List[float]] = None
-    device: str = "tpu"
+    device: str = "gpu"  # accepted for YAML schema parity; JAX picks the device
     lambda_: float = 1.0
     # Accepted for YAML schema parity but intentionally ignored: the
     # reference declares it and never reads it either (its lambda adaptation
@@ -88,7 +93,7 @@ class MPPIConfig:
     filter_u: bool = False
     use_priors: bool = False
     fine_noise_scale: float = 0.05  # scale of the fine-sampling quartile (extension)
-    use_pallas: bool = True  # fused TPU kernels where available (extension)
+    use_pallas: bool = True  # fused Triton kernels on an NVIDIA GPU (extension)
     # Gradient refinement of the mean plan (extension): the JAX physics
     # rollout is differentiable end-to-end, so after the importance-weighted
     # update the mean action sequence can take a few first-order steps on the
@@ -97,15 +102,14 @@ class MPPIConfig:
     # sampling stalls.  0 = off (pure sampling, reference behavior).
     grad_refine_steps: int = 0
     grad_refine_lr: float = 0.02
-    # Annealed resampling refinement (extension; the TPU-shaped alternative
-    # to grad_refine): after the importance-weighted update, re-run the
-    # FUSED K-lane rollout ``refine_iters`` more times with the cached
+    # Annealed resampling refinement (extension; the data-parallel
+    # alternative to grad_refine): after the importance-weighted update,
+    # re-run the K-lane rollout ``refine_iters`` more times with the cached
     # Halton deltas shrunk to refine_scale * refine_decay^i around the
     # updated means, re-applying the importance update each time.  Same
     # goal as grad_refine (millimetre convergence on narrow manifolds) but
-    # each iteration is one full-width Pallas kernel pass (~0.6 ms at
-    # K=200) instead of a 3-lane differentiable rollout chain (measured
-    # 10.3 ms of the 16.5 ms panda tick — UTILIZATION.json panda row).
+    # each iteration is one full-width rollout instead of a sequential
+    # 3-lane differentiable rollout chain.
     refine_iters: int = 0
     refine_scale: float = 0.1
     refine_decay: float = 0.5
@@ -361,9 +365,11 @@ class MPPI:
         self.fric_inject = fric_inject
         self._fric_scale = jnp.asarray(self._make_fric_scales())
 
-        from m3p2i_aip_tpu.ops.pallas_kernels import pallas_available
+        from m3p2i_aip_tpu.ops.pallas_kernels import gpu_kernels_available
 
-        self.use_pallas = pallas_available() and getattr(mcfg, "use_pallas", True)
+        # the Triton kernels compile only for a GPU; elsewhere the planner
+        # runs its plain XLA path (no interpret-mode fallback)
+        self.use_pallas = gpu_kernels_available() and getattr(mcfg, "use_pallas", True)
         # Optional fused rollout (ops/pallas_rollout.py): set via
         # set_rollout_override, NOT by assigning the attribute — the value is
         # captured at jit trace time of `command`.
@@ -512,10 +518,7 @@ class MPPI:
         through the dynamics — SURVEY.md §2.2).  The kernel receives its
         shard's global sample offset so the M3P2I half-batch mode split stays
         global-index based."""
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
+        from jax import shard_map
         from jax.sharding import PartitionSpec
 
         n = int(self.mesh.devices.size)
@@ -590,9 +593,9 @@ class MPPI:
         reference passes self.beta_* but never persists the tuned values —
         each call starts from beta=1; replicated here.
 
-        On TPU this dispatches to the fused Pallas kernel
+        On a GPU this dispatches to the fused Triton kernel
         (ops/pallas_kernels.py): cost-to-go + all three masked adaptive-beta
-        softmaxes in one VMEM-resident pass.
+        softmaxes in one program, with no host-polled loop.
         """
         if self.use_pallas and self.mesh is None:  # single-chip fast path
             from m3p2i_aip_tpu.ops.pallas_kernels import multimodal_weights_pallas
@@ -645,9 +648,9 @@ class MPPI:
             w0, w1, w = self._multi_modal_exp_util(cost_horizon)
             best0 = actions[jnp.argmax(w0)]
             best1 = actions[jnp.argmax(w1)]
-            mean0 = jnp.einsum("k,ktu->tu", w0, actions)
-            mean1 = jnp.einsum("k,ktu->tu", w1, actions)
-            new_mean = jnp.einsum("k,ktu->tu", w, actions)
+            mean0 = jnp.einsum("k,ktu->tu", w0, actions, precision=_HIGHEST)
+            mean1 = jnp.einsum("k,ktu->tu", w1, actions, precision=_HIGHEST)
+            new_mean = jnp.einsum("k,ktu->tu", w, actions, precision=_HIGHEST)
             mean = (
                 (1.0 - self.step_size_mean) * state.mean_action
                 + self.step_size_mean * new_mean
@@ -674,7 +677,7 @@ class MPPI:
                 def mode_cov(cov, w_m, mean_m):
                     delta = actions - mean_m[None]
                     second = jnp.mean(
-                        jnp.einsum("k,ktu->tu", w_m, delta**2), axis=0
+                        jnp.einsum("k,ktu->tu", w_m, delta**2, precision=_HIGHEST), axis=0
                     )
                     return (
                         (1.0 - self.step_size_cov) * cov
@@ -689,7 +692,7 @@ class MPPI:
             return state
         w, beta = self._exp_util(cost_horizon, state.beta)
         best = actions[jnp.argmax(w)]
-        new_mean = jnp.einsum("k,ktu->tu", w, actions)
+        new_mean = jnp.einsum("k,ktu->tu", w, actions, precision=_HIGHEST)
         mean = (
             (1.0 - self.step_size_mean) * state.mean_action
             + self.step_size_mean * new_mean
@@ -702,7 +705,7 @@ class MPPI:
             # minimum kappa / step_size_cov, not a hard floor).
             delta = actions - mean[None]
             cov_update = jnp.mean(
-                jnp.einsum("k,ktu->tu", w, delta**2), axis=0
+                jnp.einsum("k,ktu->tu", w, delta**2, precision=_HIGHEST), axis=0
             )
             cov = (
                 (1.0 - self.step_size_cov) * state.cov_action
@@ -736,7 +739,10 @@ class MPPI:
             state, action, tps = self._command_halton(state, sim_state_k, task)
 
         if self.filter_u:
-            action = self._sgf[: action.shape[0], : action.shape[0]] @ action
+            action = jnp.matmul(
+                self._sgf[: action.shape[0], : action.shape[0]], action,
+                precision=_HIGHEST,
+            )
 
         # top-20 rollout positions for visualization (mppi.py:248-254)
         k = min(20, self.K)
@@ -938,7 +944,7 @@ class MPPI:
                 c, ext = self.running_cost(s, u_t, task, mode)
                 return (s, ext), c
 
-            # unroll: T is small (12) and each step is tiny sequential VPU
+            # unroll: T is small (12) and each step is tiny sequential elementwise
             # work — unrolling lets XLA fuse across steps in both the
             # forward and the induced reverse pass instead of paying loop
             # overhead per step (flag-gated: costs compile time)
@@ -968,7 +974,7 @@ class MPPI:
             # the global mean is refined under the currently-winning mode.
             # All three chains run as ONE vmapped scan: sequential depth is
             # inherent to gradient descent, but the per-mode axis is not —
-            # batching it cut the measured panda refine cost 3x on the v5e.
+            # batching it removes two of the three sequential chains.
             win = (
                 jnp.sum(state.weights[self.half_K :])
                 > jnp.sum(state.weights[: self.half_K])
@@ -1008,17 +1014,17 @@ class MPPI:
         cost_total = jnp.sum(cost_horizon, axis=-1)
 
         noise_b = perturbed - U[None]  # post-bounding noise (mppi.py:356)
-        action_cost = self.lambda_ * (
-            jnp.abs(noise_b) @ jnp.asarray(self.noise_sigma_inv)
-            if self.cfg.noise_abs_cost
-            else noise_b @ jnp.asarray(self.noise_sigma_inv)
+        action_cost = self.lambda_ * jnp.matmul(
+            jnp.abs(noise_b) if self.cfg.noise_abs_cost else noise_b,
+            jnp.asarray(self.noise_sigma_inv),
+            precision=_HIGHEST,
         )
         cost_total = cost_total + jnp.sum(U[None] * action_cost, axis=(1, 2))
 
         beta = jnp.min(cost_total)
         nz = ensure_non_zero(cost_total, beta, 1.0 / self.lambda_)
         weights = nz / jnp.sum(nz)
-        U = U + jnp.einsum("k,ktu->tu", weights, noise_b)
+        U = U + jnp.einsum("k,ktu->tu", weights, noise_b, precision=_HIGHEST)
         state = state.replace(U=U, weights=weights, rng=rng)
         # full sequence returned; the SG filter then acts on the whole [T]
         # window and the caller slices u_per_command (reference filters the

@@ -1,6 +1,6 @@
 """Planar position-based (PBD/XPBD-style) rigid contact primitives.
 
-This is the TPU-native replacement for the PhysX contact solver the reference
+This is the JAX replacement for the PhysX contact solver the reference
 drives through Isaac Gym (``isaacgym_wrapper.py:27-32``: TGS solver, 6 position
 iterations).  Position-based projection gives hard, unconditionally stable
 contacts with static geometry at any dt — no penalty-stiffness/dt stability

@@ -19,7 +19,7 @@ from typing import List, Optional
 class SimConfig:
     dt: float = 0.05
     substeps: int = 2
-    use_gpu_pipeline: bool = True  # accepted for config-compat; ignored on TPU
+    use_gpu_pipeline: bool = True  # accepted for config-compat; ignored
     num_threads: int = 8  # ignored (XLA manages parallelism)
     viewer: bool = False
     spacing: float = 10.0
@@ -77,9 +77,7 @@ def load_env_cfgs(env_type: str) -> List[ActorCfg]:
     order; here the files are sorted by their numeric prefix explicitly so the
     actor indexing is deterministic on any filesystem.
     """
-    import yaml
-
-    from m3p2i_aip_tpu.utils import path_utils
+    from m3p2i_aip_tpu.utils import path_utils, yaml_lite
 
     env_path = path_utils.get_config_path() / env_type
 
@@ -90,6 +88,5 @@ def load_env_cfgs(env_type: str) -> List[ActorCfg]:
 
     cfgs = []
     for f in sorted(env_path.glob("*.yaml"), key=order_key):
-        with open(f) as fh:
-            cfgs.append(ActorCfg(**(yaml.safe_load(fh) or {})))
+        cfgs.append(ActorCfg(**(yaml_lite.load(f) or {})))
     return cfgs

@@ -2,8 +2,8 @@
 ONE jitted, vmapped device program.
 
 The reference evaluates its n=20 quality batches strictly serially — one
-Isaac Gym process per run, seeds back to back (SURVEY.md §4.3).  On a TPU
-there is no reason to: every seeded run is the same traced program with
+Isaac Gym process per run, seeds back to back (SURVEY.md §4.3).  On an
+accelerator there is no reason to: every seeded run is the same traced program with
 different MPPIState data (the seeded Halton deltas are traced state,
 CLAUDE.md invariants), so B seeds vmap into a single [B, ...] chunk program
 whose rollout batch is effectively B x K.  The host keeps B independent
@@ -11,14 +11,14 @@ symbolic planners (the latches/stall detectors are per-run mutable state)
 and drains B logs per chunk boundary — one device dispatch and one fetch
 where the serial runner paid B of each.
 
-The fused Pallas rollout/weight kernels stay live under the vmap: their
-``custom_vmap`` rules dispatch one ``grid=(B,)`` kernel per chunk tick
-(ops/pallas_rollout.py, ops/pallas_panda_rollout.py, ops/pallas_kernels.py),
-so the batched runner keeps the serial path's kernel speed.  Parity: host
-logs are tick-for-tick identical to B serial ``SimLoop.run_chunked`` runs at
-the same chunk size ON THE SAME ROLLOUT BACKEND (tests/test_batch_loop.py
-asserts this on the CPU XLA path; the batched-kernel == serial-kernel check
-is the vmap parity tests in tests/test_pallas.py).
+On a GPU the fused point rollout and weight kernels stay live under the
+vmap: their ``custom_vmap`` rules dispatch one batched kernel per chunk tick
+(ops/pallas_rollout.py, ops/pallas_kernels.py), so the batched runner keeps
+the serial path's kernel speed.  Parity: host logs are tick-for-tick
+identical to B serial ``SimLoop.run_chunked`` runs at the same chunk size ON
+THE SAME ROLLOUT BACKEND (tests/test_batch_loop.py asserts this on the CPU
+XLA path; the batched-kernel == serial-kernel check is the vmap parity tests
+in tests/test_pallas.py).
 
 Seeds finish at different ticks: the chunk program's success gate takes a
 ``done0`` pre-latch (ReactiveTAMP._run_chunk_impl / _run_chunk_panda_impl),

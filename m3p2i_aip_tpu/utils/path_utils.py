@@ -3,8 +3,6 @@ from __future__ import annotations
 
 import pathlib
 
-import yaml
-
 import m3p2i_aip_tpu
 
 
@@ -25,5 +23,6 @@ def get_plot_path() -> pathlib.Path:
 
 
 def load_yaml(file_path):
-    with open(file_path) as f:
-        return yaml.safe_load(f)
+    from m3p2i_aip_tpu.utils import yaml_lite
+
+    return yaml_lite.load(file_path)

@@ -2,7 +2,7 @@
 
 Replaces the Isaac Gym viewer surface the reference uses for inspection
 (``isaacgym_wrapper.py:374-460``: viewer camera, top-20 trajectory lines,
-keyboard teleop feedback).  On a headless TPU host the fast path is an ASCII
+keyboard teleop feedback).  On a headless host the fast path is an ASCII
 top-down view; ``save_trajectory_plot`` writes a PNG when matplotlib is
 available (it is optional — gated import).
 """
@@ -129,7 +129,7 @@ def save_frames(
 ) -> Optional[str]:
     """Render the run as per-tick PNG frames (+ an animated GIF when PIL is
     available) — the offline twin of the Isaac Gym viewer's live camera
-    (isaacgym_wrapper.py:374-460) for headless TPU hosts.
+    (isaacgym_wrapper.py:374-460) for headless hosts.
 
     Frames show the scene statics, the robot/box paths so far, and the
     current positions.  Returns the GIF path (or the frame dir when no GIF

@@ -2,7 +2,7 @@
 
 The reference runs the planner and the actuated sim as two OS processes
 bridged by zerorpc over ``tcp://*:4242`` (reactive_tamp.py:92-94,
-sim.py:29-30).  The TPU-native design doesn't need a process split (one
+sim.py:29-30).  This design doesn't need a process split (one
 device-resident loop, SURVEY.md §5 "Distributed communication backend"), but
 the two-terminal workflow is preserved for parity via this dependency-free
 server/client: stdlib sockets, frames of ``[u32 length | payload]``, a JSON

@@ -3,7 +3,7 @@
 The reference lets a human disturb the scene WHILE the planner runs — shove
 or drag the cube from the viewer (``isaacgym_wrapper.py:413-437``
 ``play_with_cube``) and drive the robot (``:439-460`` ``keyboard_control``).
-Headless TPU has no viewer, so the equivalent surface is the terminal:
+A headless host has no viewer, so the equivalent surface is the terminal:
 :class:`KeyboardTeleop` puts stdin in cbreak mode and drains pending
 keystrokes once per control tick without ever blocking the loop.
 

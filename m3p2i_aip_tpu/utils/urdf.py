@@ -10,7 +10,7 @@ without writing FK by hand.
 
 Only the kinematic subset of URDF is read: joint type / origin / axis /
 limits and the parent-child link tree.  Rotations compose as 3x3 matrices
-(dots — the TPU-friendly form; see panda_fk.py's rationale).
+(dots — the fusion-friendly form; see panda_fk.py's rationale).
 """
 from __future__ import annotations
 

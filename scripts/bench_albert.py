@@ -1,14 +1,11 @@
 #!/usr/bin/env python3
-"""Albert replan-rate benchmark (VERDICT r4 weak #4: the albert family had
-no published Hz row).
+"""Albert replan-rate benchmark.
 
 Measures the sustained full-replan rate of the 13-DOF mobile manipulator on
 its hardest task (``push_reach``: base pushes the box through the PBD
 contact solver while the arm tracks a hover target riding the box) at the
 reference-class workload K=200 x T=12.  Every tick is a full K-rollout
-replan (XLA scan rollout — the albert has no fused Pallas kernel; see
-UTILIZATION.json's albert attribution row for the measured basis of that
-decision) + real-env step, chunked on-device like the point/panda benches.
+replan (XLA scan rollout — the albert has no fused kernel) + real-env step, chunked on-device like the point/panda benches.
 
 Prints ONE JSON line and writes ALBERT_BENCH.json at the repo root.
 Baseline class: the reference publishes no albert tasks at all (it ships

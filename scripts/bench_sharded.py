@@ -16,8 +16,8 @@ the ratio crosses 1 on the measured backend.
 On a single host with a virtual mesh the numbers measure partitioning
 OVERHEAD only (the 8 "devices" share one physical CPU, so there is no
 added compute bandwidth to win); on a real multi-chip mesh the same GSPMD
-program rides ICI and the crossover moves to wherever one chip's VMEM/HBM
-saturates.  Both regimes are recorded in the artifact.
+program's collectives ride NVLink and the crossover moves to wherever one
+card saturates.  Both regimes are recorded in the artifact.
 
 Usage:
     python scripts/bench_sharded.py [--virtual] [--ticks 20] \
@@ -48,27 +48,9 @@ def main() -> None:
             + " --xla_force_host_platform_device_count=8"
         ).strip()
         os.environ["JAX_PLATFORMS"] = "cpu"
-        # repo-local compile cache (same rationale as tests/conftest.py):
-        # the DEFAULT persistent cache holds other machines' XLA:CPU AOT
-        # entries and spams a cpu_aot_loader feature-mismatch error per
-        # lookup before recompiling anyway
-        os.environ["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            ".jax_cache",
-        )
 
     import jax
     import numpy as np
-
-    if args.virtual:
-        jax.config.update("jax_platforms", "cpu")
-        try:
-            jax.config.update(
-                "jax_compilation_cache_dir",
-                os.environ["JAX_COMPILATION_CACHE_DIR"],
-            )
-        except Exception:
-            pass  # older jax: the env var above covers it
 
     from m3p2i_aip_tpu.config.config_store import load_config
     from m3p2i_aip_tpu.parallel import make_mesh, shard_planner
@@ -138,7 +120,7 @@ def main() -> None:
             # K must not discard the whole study
             print("MISMATCH:", act_u, act_s, file=sys.stderr)
 
-    # ---- analytic crossover model (VERDICT r4 #7) ----------------------
+    # ---- analytic crossover model ----------------------------------------
     # Single-chip replan time is affine in K: t_u(K) = a + b*K (fit below).
     # On an n-chip mesh each device rolls K/n samples and pays a fixed
     # partitioning cost c_part (shard_map dispatch + the weight stage's
@@ -148,7 +130,7 @@ def main() -> None:
     # c_part is estimated from THIS sweep: on a virtual mesh the n
     # "devices" share one core, so total compute is unchanged and
     # t_s - t_u  is the partition cost itself (an upper bound for a real
-    # ICI mesh, whose collectives are faster than host-shared-memory
+    # multi-card mesh, whose collectives are faster than host-shared-memory
     # emulation).  All model inputs are recorded so the prediction is
     # recomputable.
     Ks = np.asarray([r["K"] for r in rows], dtype=np.float64)
@@ -166,7 +148,7 @@ def main() -> None:
                 "c_partition_note": (
                     "median(t_sharded - t_unsharded) over the sweep; on a "
                     "virtual mesh this IS the partition cost (no added "
-                    "compute capacity) and upper-bounds a real ICI mesh"
+                    "compute capacity) and upper-bounds a real multi-card mesh"
                 ),
                 "mesh_devices": n,
                 "predicted_crossover_K_real_mesh": int(round(k_star)),
@@ -188,7 +170,7 @@ def main() -> None:
         "note": (
             "virtual-mesh devices share one physical CPU: the sweep "
             "measures partitioning overhead, not scaling; on a real "
-            "multi-chip ICI mesh the per-device rollout capacity is what "
+            "multi-card mesh the per-device rollout capacity is what "
             "moves the crossover"
             if args.virtual or jax.devices()[0].platform == "cpu"
             else "real device mesh"

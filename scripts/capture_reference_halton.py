@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Capture the reference's OWN Halton sampler output as a committed golden.
 
-VERDICT r4 missing #3: the repo's samplers were tested against each other,
+Without it the repo's samplers would be tested only against each other,
 not against the reference's ``generate_gaussian_halton_samples``
 (``/root/reference/src/m3p2i_aip/utils/mppi_utils.py:80-104``).  This script
 EXECUTES the reference module's pure fallback path (``use_ghalton=False`` —

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Recompute RESULTS.md row statistics from a committed experiment log.
 
-VERDICT r4 weak #2: a RESULTS row must be reproducible from its shipped
+A RESULTS row must be reproducible from its shipped
 artifact.  This script is the one-command recompute: schema is sniffed from
 the column count (19 = point, 15 = panda, 11 = albert — see
 analysis/run_logger.py), stats come from the same ``analysis.summarize``

@@ -1,7 +1,7 @@
 #!/bin/bash
-# Full quality-envelope campaign (VERDICT round-1 #3, #4, #7): n>=20 seeded
+# Full quality-envelope campaign: n>=20 seeded
 # batches for every headline scenario, plus reference-parity ablation rows.
-# Run on the TPU host; results land in plot/{panda,point}/*.npy.
+# Run on the accelerator host; results land in plot/{panda,point}/*.npy.
 set -x
 cd "$(dirname "$0")/.."
 

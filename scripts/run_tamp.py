@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Single-process reactive TAMP — the TPU-native replacement for the
+"""Single-process reactive TAMP — the in-process replacement for the
 two-terminal reactive_tamp.py + sim.py workflow (SURVEY.md §7 "Architecture
 stance": one process, one device-resident jitted loop).
 

@@ -16,14 +16,19 @@ keyboard loop, sim.py:39 + isaacgym_wrapper.py:413-460): i/j/k/l shove the
 box, v toggles the ASCII view with the planner's top-trajectory overlay
 (get_trajs RPC), q quits.  Inert when stdin is not a tty.
 """
+import os
 import sys
 import time
+
+# The stand-in for the robot steps its one env on the CPU on purpose: the
+# planner server (scripts/reactive_tamp.py) owns the card, and a second JAX
+# process on it would fail for want of memory (one JAX process per card).
+os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from m3p2i_aip_tpu.config.config_store import load_config_from_argv

@@ -154,7 +154,7 @@ def test_batched_panda_matches_serial():
 def test_batch_reset_revalidates_shard_divisibility():
     """reset(seeds) with a batch size that no longer divides the seed mesh
     must fail loudly at reset time, not with an opaque device_put error at
-    warmup (ADVICE round 3)."""
+    warmup."""
     import jax
 
     if len(jax.devices()) < 2:
@@ -206,7 +206,7 @@ def test_batched_sharded_over_seed_mesh():
 
 @pytest.mark.slow
 def test_batched_panda_sharded_over_seed_mesh():
-    """Panda seed-axis sharding (VERDICT r4 #2): shard=True on the panda
+    """Panda seed-axis sharding: shard=True on the panda
     batch lays the seed axis over the 8-device virtual mesh; stage
     progression and views must match the unsharded batched run (both ride
     the pure-XLA rollout on CPU, so this is apples-to-apples)."""

@@ -1,4 +1,4 @@
-"""CLI-surface smoke test (VERDICT r4 #8): the six canonical reference
+"""CLI-surface smoke test: the six canonical reference
 command pairs (``/root/reference/README.md:74-143``) must parse, build, and
 tick through scripts/run_tamp.py's exact entry path
 (``load_config_from_argv`` -> SimLoop -> tick) at tiny K/T.

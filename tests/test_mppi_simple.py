@@ -1,4 +1,4 @@
-"""Simple-mode MPPI coverage (VERDICT round-2 weak #1).
+"""Simple-mode MPPI coverage.
 
 Three gaps closed: a golden test of the Williams weight/update math against
 an independent numpy recomputation (reference formulas mppi.py:335-363),
@@ -217,9 +217,9 @@ def test_sample_refine_improves_plan_cost():
     """Annealed resampling refinement (MPPIConfig.refine_iters): same seed,
     same state — the refined mean plan's true discounted cost must be no
     worse than the unrefined one's, and the mean must actually move.  This
-    is the TPU-shaped replacement for grad_refine (UTILIZATION.json panda
-    attribution: the 3-lane differentiable chain was 10.3 of the 16.5 ms
-    tick; each refine iteration reuses the full-width rollout instead)."""
+    is the data-parallel replacement for grad_refine (each refine iteration
+    reuses the full-width rollout instead of a sequential 3-lane
+    differentiable chain)."""
 
     def build(iters):
         mcfg = MPPIConfig(

@@ -271,7 +271,7 @@ def test_native_halton_matches_numpy():
 
 
 def test_gaussian_halton_matches_reference_captured_golden():
-    """VERDICT r4 missing #3: parity against the reference's OWN executed
+    """Parity against the reference's OWN executed
     output, not a reimplementation.  The fixture was produced by RUNNING the
     reference's pure fallback path (use_ghalton=False) via
     scripts/capture_reference_halton.py — van-der-Corput radical inverses

@@ -1,98 +1,23 @@
-"""Pallas kernel parity tests.
+"""Parity tests of the Pallas/Triton kernels against the plain XLA paths.
 
-Two tiers:
-- Mosaic (real-TPU) goldens — skipped on CPU;
-- interpret-mode goldens — run in the DEFAULT CPU suite via
-  ``pl.pallas_call(interpret=True)``, so any drift between the kernels'
-  cost/physics semantics and the XLA reference paths fails CI without a TPU
-  (single-sources the dual-maintenance risk: the wall-crush penalty once had
-  to be patched in two places, commit 393c90a).
+Three tiers:
+- interpret-mode goldens — run in the DEFAULT CPU suite through the Pallas
+  interpreter, so any drift between the kernels' cost/physics semantics and
+  the XLA reference paths fails without a GPU;
+- lowering checks — the Triton lowering of both kernels at full widths runs
+  on the CPU (``lowering_platforms=("cuda",)``), so a primitive or a block
+  shape the Triton route refuses fails here, not on the card;
+- ``gpu``-marked tests — the compiled kernels on the card at full widths
+  (``JAX_PLATFORMS=cuda python -m pytest -m gpu tests/``; ``chip_smoke.py``
+  runs them).
 """
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from m3p2i_aip_tpu.ops.pallas_kernels import pallas_available
+from m3p2i_aip_tpu.planners.motion_planner.mppi import TaskParams
 
-# The interpret-mode goldens are CPU gates: under M3P2I_TEST_TPU the XLA
-# reference paths run with MXU rounding the interpreted kernels don't share
-# (measured 0.06 cost drift on the pick case), and the dedicated on-device
-# parity tests already cover the TPU backend at 4e-6.
-_skip_on_tpu = pytest.mark.skipif(
-    os.environ.get("M3P2I_TEST_TPU", "") == "1",
-    reason="interpret-mode parity is the CPU gate; TPU has dedicated tests",
-)
-
-
-@pytest.mark.skipif(not pallas_available(), reason="needs a TPU backend")
-def test_multimodal_weights_matches_jax_path():
-    from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.ops.pallas_kernels import multimodal_weights_pallas
-    from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
-
-    cfg = load_config(
-        "config_point", ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]
-    )
-    mp = ReactiveTAMP(cfg).motion_planner
-    rng = np.random.default_rng(0)
-    ch = jnp.asarray(rng.uniform(0, 50, size=(mp.K, mp.T)).astype(np.float32))
-
-    mp.use_pallas = False
-    ref = jax.jit(mp._multi_modal_exp_util)(ch)
-    got = multimodal_weights_pallas(ch, mp.gamma_seq, mp.half_K, 10.0, 3.0)
-    for r, g in zip(ref, got):
-        assert np.allclose(np.asarray(r), np.asarray(g), atol=1e-6)
-        assert abs(float(jnp.sum(g)) - 1.0) < 1e-5
-
-
-@pytest.mark.skipif(not pallas_available(), reason="needs a TPU backend")
-def test_fused_rollout_matches_xla_path():
-    """The fused point-env rollout kernel (ops/pallas_rollout.py) must match
-    the XLA scan-of-vmapped-step rollout on costs and trajectories."""
-    from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
-
-    cfg = load_config(
-        "config_point", ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]
-    )
-    tamp = ReactiveTAMP(cfg)
-    mp = tamp.motion_planner
-    assert mp.rollout_override is not None
-
-    K, T = mp.K, mp.T
-    rng = np.random.default_rng(0)
-    # start states include multi-contact configurations: open space, the
-    # arena wall JUNCTION (two simultaneous wall contacts — the state where
-    # sequential contact resolution would diverge from the batched XLA
-    # semantics), and pressed against the box near a wall
-    starts = [
-        (jnp.asarray([-0.3, 1.4]), jnp.asarray([0.5, 0.5])),
-        (jnp.asarray([-3.7, -3.7]), jnp.asarray([-2.0, -2.0])),
-        (jnp.asarray([-0.05, 1.75]), jnp.asarray([0.0, 2.0])),
-    ]
-    for q0, qd0 in starts:
-        state = tamp.env.init_state().replace(q=q0, qd=qd0)
-        tp = tamp.tamp_interface(state)
-        sK = jax.tree_util.tree_map(
-            lambda x: jnp.broadcast_to(x, (K,) + x.shape), state
-        )
-        acts = jnp.asarray(rng.uniform(-3, 3, size=(K, T, 2)).astype(np.float32))
-
-        ov = mp.rollout_override
-        mp.rollout_override = None
-        ch_ref, tps_ref = jax.jit(lambda s, a: mp._rollout(s, a, tp))(sK, acts)
-        mp.rollout_override = ov
-        ch_pl, tps_pl = jax.jit(lambda s, a: ov(s, a, tp))(sK, acts)
-        assert np.allclose(np.asarray(ch_ref), np.asarray(ch_pl), atol=1e-2), q0
-        assert np.allclose(np.asarray(tps_ref), np.asarray(tps_pl), atol=1e-3), q0
-
-
-# ---------------------------------------------------------------------------
-# interpret-mode goldens: run on CPU in the default suite
-# ---------------------------------------------------------------------------
 
 def _build_tamp(K=32, T=12, config_name="config_point", overrides=()):
     from m3p2i_aip_tpu.config.config_store import load_config
@@ -113,11 +38,105 @@ def _build_tamp(K=32, T=12, config_name="config_point", overrides=()):
     return cfg, ReactiveTAMP(cfg)
 
 
-@_skip_on_tpu
+def _reduced(params):
+    """Reduced physics (substeps=1, pos_iters=1, 2 statics): every code path
+    — drive, cap, all 5 contact passes, suction carry, every task cost — is
+    still exercised, but the interpret-mode program is ~8x smaller.  Both
+    sides of a parity check are built from the SAME reduced params, so any
+    formula drift still fails."""
+    return params.replace(
+        substeps=1,
+        pos_iters=1,
+        stat_pos=params.stat_pos[:2],
+        stat_yaw=params.stat_yaw[:2],
+        stat_half=params.stat_half[:2],
+        stat_friction=params.stat_friction[:2],
+        stat_actor_idx=params.stat_actor_idx[:2],
+    )
+
+
+def _xla_rollout_fn(params, cfg, K):
+    """MPPI._rollout semantics (scan over T of the vmapped env step + the
+    PointObjective cost) on explicit ``params``."""
+    from m3p2i_aip_tpu.models import point_env
+    from m3p2i_aip_tpu.planners.motion_planner.cost_functions import (
+        PointObjective,
+    )
+
+    obj = PointObjective(params, cfg)
+    mode = (jnp.arange(K) >= K // 2).astype(jnp.int32)
+
+    def rollout(state_k, acts, task):
+        ext0 = jax.vmap(lambda _: point_env.zero_ext(params))(jnp.arange(K))
+
+        def step_t(carry, u_t):
+            s, ext = carry
+            s = jax.vmap(lambda st, u, e: point_env.step(params, st, u, e))(
+                s, u_t, ext
+            )
+            cost, ext = jax.vmap(obj.compute, in_axes=(0, 0, None, 0))(
+                s, u_t, task, mode
+            )
+            return (s, ext), (cost, s.q[:, :2])
+
+        (_, _), (costs, tps) = jax.lax.scan(
+            step_t, (state_k, ext0), jnp.swapaxes(acts, 0, 1)
+        )
+        return jnp.swapaxes(costs, 0, 1), jnp.swapaxes(tps, 0, 1)
+
+    return rollout
+
+
+def _bcast(state, K):
+    return jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x, (K,) + x.shape), state
+    )
+
+
+def _task(task_id, goal):
+    return TaskParams(
+        task_id=jnp.asarray(task_id, jnp.int32),
+        goal=jnp.concatenate([jnp.asarray(goal), jnp.zeros(5)]).astype(jnp.float32),
+        gripper=jnp.asarray(0, jnp.int32),
+        zup_gate=jnp.asarray(0.0, jnp.float32),
+    )
+
+
+def _stack(xs):
+    return jax.tree_util.tree_map(lambda *l: jnp.stack(l), *xs)
+
+
+# start states with multi-contact configurations: open space, the arena
+# wall JUNCTION (two simultaneous wall contacts), pressed against the box
+# near a wall, and suction-active at 7 m/s (the robot speed cap under pull)
+_STARTS = [
+    (jnp.asarray([-0.3, 1.4]), jnp.asarray([0.5, 0.5])),
+    (jnp.asarray([-3.7, -3.7]), jnp.asarray([-2.0, -2.0])),
+    (jnp.asarray([-0.05, 1.75]), jnp.asarray([0.0, 2.0])),
+    (jnp.asarray([0.0, 1.55]), jnp.asarray([0.0, 7.0])),
+]
+
+
+# ---------------------------------------------------------------------------
+# interpret-mode goldens: run on CPU in the default suite
+# ---------------------------------------------------------------------------
+
+
 def test_multimodal_weights_interpret_matches_jax_cpu():
+    """K=32: one tile, padded K and T."""
+    _check_weights_interpret(32)
+
+
+def test_multimodal_weights_interpret_multi_tile():
+    """K=700: two 512-sample tiles with a padded tail, so the in-kernel
+    tile loop is covered."""
+    _check_weights_interpret(700)
+
+
+def _check_weights_interpret(K):
     from m3p2i_aip_tpu.ops.pallas_kernels import multimodal_weights_pallas
 
-    _, tamp = _build_tamp()
+    _, tamp = _build_tamp(K=K)
     mp = tamp.motion_planner
     rng = np.random.default_rng(0)
     ch = jnp.asarray(rng.uniform(0, 50, size=(mp.K, mp.T)).astype(np.float32))
@@ -132,7 +151,6 @@ def test_multimodal_weights_interpret_matches_jax_cpu():
         assert abs(float(jnp.sum(g)) - 1.0) < 1e-5
 
 
-@_skip_on_tpu
 @pytest.mark.slow
 @pytest.mark.parametrize(
     "config_name,overrides",
@@ -147,95 +165,37 @@ def test_multimodal_weights_interpret_matches_jax_cpu():
 )
 def test_fused_rollout_interpret_matches_xla_cpu(config_name, overrides):
     """Kernel-vs-XLA rollout parity on CPU (interpret mode), all three
-    point-family robot bases (2-dof omni / 3-dof omni / diff-drive).
-
-    Start states include the cases where the kernel's physics shortcuts
-    would diverge first: wall junction (multi-contact), box contact, and a
-    SUCTION-ACTIVE high-speed state where the ±500 N pull force hits the
-    6 m/s robot speed cap (point_env.py:310-312) — the cap the kernel
-    originally omitted (ADVICE round 1, high severity).
-
-    Runs on REDUCED physics params (substeps=1, pos_iters=1, 2 statics):
-    every code path — drive, cap, all 5 contact passes, suction carry,
-    every task cost — is still exercised, but the interpret-mode program is
-    ~8x smaller (the full-size program takes >30 min to compile on CPU).
-    Both sides are built from the SAME reduced params, so any formula drift
-    still fails.
-    """
-    from m3p2i_aip_tpu.models import point_env
+    point-family robot bases (2-dof omni / 3-dof omni / diff-drive), on
+    reduced physics (see _reduced), from multi-contact start states."""
     from m3p2i_aip_tpu.ops.pallas_rollout import make_point_rollout
-    from m3p2i_aip_tpu.planners.motion_planner.cost_functions import (
-        PointObjective,
-    )
 
     cfg, tamp = _build_tamp(config_name=config_name, overrides=overrides)
     mp = tamp.motion_planner
     full = tamp.env.params
-    red = full.replace(
-        substeps=1,
-        pos_iters=1,
-        stat_pos=full.stat_pos[:2],
-        stat_yaw=full.stat_yaw[:2],
-        stat_half=full.stat_half[:2],
-        stat_friction=full.stat_friction[:2],
-        stat_actor_idx=full.stat_actor_idx[:2],
-    )
+    red = _reduced(full)
     ov = make_point_rollout(
         red, float(cfg.kp_suction), mp.K, mp.T,
         bool(cfg.multi_modal), interpret=True,
         boxer_continuous_align=bool(cfg.mppi.boxer_continuous_align),
     )
-    assert ov is not None
-
     K, T = mp.K, mp.T
-    obj = PointObjective(red, cfg)
-    mode = (jnp.arange(K) >= K // 2).astype(jnp.int32)
-
-    def _xla_rollout(state_k, acts, task):
-        """MPPI._rollout semantics on the reduced params (mppi.py:382-409)."""
-        ext0 = jax.vmap(lambda _: point_env.zero_ext(red))(jnp.arange(K))
-
-        def step_t(carry, u_t):
-            s, ext = carry
-            s = jax.vmap(lambda st, u, e: point_env.step(red, st, u, e))(
-                s, u_t, ext
-            )
-            cost, ext = jax.vmap(obj.compute, in_axes=(0, 0, None, 0))(
-                s, u_t, task, mode
-            )
-            return (s, ext), (cost, s.q[:, :2])
-
-        acts_t = jnp.swapaxes(acts, 0, 1)
-        (_, _), (costs, tps) = jax.lax.scan(step_t, (state_k, ext0), acts_t)
-        return jnp.swapaxes(costs, 0, 1), jnp.swapaxes(tps, 0, 1)
-    rng = np.random.default_rng(0)
-    starts = [
-        # open space
-        (jnp.asarray([-0.3, 1.4]), jnp.asarray([0.5, 0.5])),
-        # arena wall junction, inbound fast (two simultaneous wall contacts)
-        (jnp.asarray([-3.7, -3.7]), jnp.asarray([-2.0, -2.0])),
-        # pressed against the box near the north wall
-        (jnp.asarray([-0.05, 1.75]), jnp.asarray([0.0, 2.0])),
-        # suction-active: adjacent to the box (box at [0, 2]) at 7 m/s —
-        # exercises the robot speed cap under pull forces
-        (jnp.asarray([0.0, 1.55]), jnp.asarray([0.0, 7.0])),
+    starts = _STARTS + [
         # corner sprint above the cap with suction range of nothing
         (jnp.asarray([-3.3, -3.3]), jnp.asarray([-6.0, -6.0])),
         # box parked at the pocket mouth (d_bg < 1 of the corner goal):
-        # exercises the diff-drive pocket-goal pull veto and the widened
-        # at_edge boundary-crush margin in both paths
+        # the diff-drive pocket-goal pull veto and the at_edge margin
         (
             jnp.asarray([-2.6, -2.9]),
             jnp.asarray([-1.0, -1.0]),
             jnp.asarray([-3.3, -3.2]),
         ),
     ]
-    # compile ONCE; task/state/acts are traced args (interpret-mode compiles
-    # of the full rollout program are minutes each on CPU)
     n_q = 3 if full.robot_type in ("heijn", "boxer") else 2
     n_u = 3 if full.robot_type == "heijn" else 2
-    ref_fn = jax.jit(_xla_rollout)
+    ref_fn = jax.jit(_xla_rollout_fn(red, cfg, K))
     pl_fn = jax.jit(lambda s, a, t: ov(s, a, t))
+    box_slot = tamp.objective.box_dyn_slot
+    rng = np.random.default_rng(0)
     for entry in starts:
         q0, qd0 = entry[0], entry[1]
         if n_q == 3:  # 3-dof bases carry yaw in q[2]
@@ -243,148 +203,16 @@ def test_fused_rollout_interpret_matches_xla_cpu(config_name, overrides):
             qd0 = jnp.concatenate([qd0, jnp.asarray([0.5])])
         state = tamp.env.init_state().replace(q=q0, qd=qd0)
         if len(entry) == 3:  # box position override
-            state = state.replace(
-                dyn_pos=state.dyn_pos.at[obj.box_dyn_slot].set(entry[2])
-            )
+            state = state.replace(dyn_pos=state.dyn_pos.at[box_slot].set(entry[2]))
         tp = tamp.tamp_interface(state)
-        sK = jax.tree_util.tree_map(
-            lambda x: jnp.broadcast_to(x, (K,) + x.shape), state
-        )
-        acts = jnp.asarray(
-            rng.uniform(-3, 3, size=(K, T, n_u)).astype(np.float32)
-        )
-
+        sK = _bcast(state, K)
+        acts = jnp.asarray(rng.uniform(-3, 3, size=(K, T, n_u)).astype(np.float32))
         ch_ref, tps_ref = ref_fn(sK, acts, tp)
         ch_pl, tps_pl = pl_fn(sK, acts, tp)
         assert np.allclose(np.asarray(ch_ref), np.asarray(ch_pl), atol=1e-2), q0
         assert np.allclose(np.asarray(tps_ref), np.asarray(tps_pl), atol=1e-3), q0
 
 
-@pytest.mark.slow
-@_skip_on_tpu
-def test_panda_rollout_interpret_matches_xla_cpu():
-    """Panda kernel-vs-XLA rollout parity on CPU (interpret mode).
-
-    Scenarios cover the kernel's riskiest transcriptions: FK + reach cost
-    (both grasp modes), grasp attach mid-rollout (gripper closing near the
-    cube), an already-attached cube under the pick cost (goal quat ori
-    cost + motion cost), tumbling free cube (nonzero angular velocity ->
-    rotation-matrix vs quaternion integration drift), and place.
-    """
-    from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.ops.pallas_panda_rollout import make_panda_rollout
-    from m3p2i_aip_tpu.planners.motion_planner.mppi import TaskParams
-    from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
-
-    from m3p2i_aip_tpu.models import panda_env
-    from m3p2i_aip_tpu.planners.motion_planner.cost_functions import (
-        PandaObjective,
-    )
-
-    cfg = load_config(
-        "config_panda",
-        ["mppi.num_samples=16", "mppi.horizon=4", "multi_modal=True"],
-    )
-    tamp = ReactiveTAMP(cfg)
-    mp = tamp.motion_planner
-    # FULL physics (substeps=2, the shipped panda solver params): the gate
-    # must enforce parity on the exact program the planner runs, not a
-    # simplified one (VERDICT round-2 weak #2). K/T stay reduced for CPU
-    # interpret-mode runtime; the physics params do not.
-    red = tamp.env.params
-    ov = make_panda_rollout(red, cfg, mp.K, mp.T, bool(cfg.multi_modal), interpret=True)
-    assert ov is not None
-
-    K, T = mp.K, mp.T
-    obj = PandaObjective(red, cfg)
-    mode = (jnp.arange(K) >= K // 2).astype(jnp.int32)
-
-    def _xla_rollout(state_k, acts, task):
-        ext0 = jax.vmap(lambda _: panda_env.zero_ext(red))(jnp.arange(K))
-
-        def step_t(carry, u_t):
-            s, ext = carry
-            s = jax.vmap(lambda st, u, e: panda_env.step(red, st, u, e))(
-                s, u_t, ext
-            )
-            cost, ext = jax.vmap(obj.compute, in_axes=(0, 0, None, 0))(
-                s, u_t, task, mode
-            )
-            from m3p2i_aip_tpu.models import panda_fk
-
-            ee = jax.vmap(lambda st: panda_fk.fk(st.q, red.base_pos)["ee"][0][:2])(s)
-            return (s, ext), (cost, ee)
-
-        acts_t = jnp.swapaxes(acts, 0, 1)
-        (_, _), (costs, tps) = jax.lax.scan(step_t, (state_k, ext0), acts_t)
-        return jnp.swapaxes(costs, 0, 1), jnp.swapaxes(tps, 0, 1)
-    rng = np.random.default_rng(1)
-    base = tamp.env.init_state()
-    goal_q = jnp.asarray([0.0, 0.0, 0.383, 0.924])
-    pick_goal = jnp.concatenate([jnp.asarray([0.4, 0.3, 1.3]), goal_q])
-
-    def tp(task_id, goal=None, gripper=0, zup_gate=0.0):
-        g = jnp.zeros(7) if goal is None else goal
-        return TaskParams(
-            task_id=jnp.asarray(task_id, jnp.int32),
-            goal=g.astype(jnp.float32),
-            gripper=jnp.asarray(gripper, jnp.int32),
-            zup_gate=jnp.asarray(zup_gate, jnp.float32),
-        )
-
-    # attached-cube state: cube welded 8 cm below the hand
-    attached = base.replace(
-        attached=jnp.asarray(1.0),
-        attach_pos=jnp.asarray([0.0, 0.0, 0.08]),
-        attach_rot=jnp.eye(3),
-    )
-    # tumbling free cube above the table
-    tumbling = base.replace(
-        body_pos=base.body_pos.at[1, 2].add(0.2),
-        body_om=base.body_om.at[1].set(jnp.asarray([2.0, -1.5, 3.0])),
-        body_vel=base.body_vel.at[1].set(jnp.asarray([0.2, -0.1, 0.0])),
-    )
-    # cubeA next to cubeB (cube-cube + probe contacts fire)
-    nearB = base.replace(
-        body_pos=base.body_pos.at[1].set(
-            base.body_pos[2] + jnp.asarray([0.06, 0.0, 0.0])
-        )
-    )
-
-    cases = [
-        (base, tp(4), 0.0),        # reach, both grasp modes
-        (base, tp(4), -1.5),       # reach with gripper closing -> attach fires
-        (attached, tp(5, pick_goal), -1.5),  # pick: ori + motion cost
-        # pick with the wedge gate ON: z-up clearance term live in both paths
-        (attached, tp(5, pick_goal, zup_gate=1.0), -1.5),
-        (tumbling, tp(4), 0.0),    # rotmat-vs-quat integration drift bound
-        (nearB, tp(5, pick_goal), -1.5),     # contact forces -> motion cost
-        (attached, tp(6), 1.5),    # place: gripper opening -> detach
-    ]
-    # compile ONCE; task/state/acts are traced args (interpret-mode compiles
-    # of the full rollout program are minutes each on CPU)
-    ref_fn = jax.jit(_xla_rollout)
-    pl_fn = jax.jit(lambda s, a, t: ov(s, a, t))
-    for i, (state, task, grip) in enumerate(cases):
-        sK = jax.tree_util.tree_map(
-            lambda x: jnp.broadcast_to(x, (K,) + x.shape), state
-        )
-        acts = jnp.asarray(
-            rng.uniform(-1.5, 1.5, size=(K, T, 9)).astype(np.float32)
-        )
-        if grip != 0.0:
-            acts = acts.at[..., 7:9].set(grip)
-        ch_ref, tps_ref = ref_fn(sK, acts, task)
-        ch_pl, tps_pl = pl_fn(sK, acts, task)
-        assert np.allclose(
-            np.asarray(ch_ref), np.asarray(ch_pl), atol=1e-2
-        ), (i, np.abs(np.asarray(ch_ref) - np.asarray(ch_pl)).max())
-        assert np.allclose(
-            np.asarray(tps_ref), np.asarray(tps_pl), atol=1e-3
-        ), i
-
-
-@_skip_on_tpu
 def test_multimodal_weights_vmap_matches_serial():
     """jax.vmap of the fused weights kernel must equal B serial kernel calls
     (the custom_vmap rule dispatches one grid=(B,) program — this is what the
@@ -409,102 +237,51 @@ def test_multimodal_weights_vmap_matches_serial():
             assert np.allclose(np.asarray(r), np.asarray(g[b]), atol=1e-6), b
 
 
-@_skip_on_tpu
 def test_point_rollout_vmap_matches_serial():
     """jax.vmap of the fused point rollout == B serial kernel rollouts with
-    DIFFERENT per-batch start states and task goals (the SmemRowView task
-    indirection is what's under test).  Interpret mode, reduced physics."""
+    DIFFERENT per-batch start states and task goals (each program loads its
+    own batch element's task scalars).  Interpret mode, reduced physics."""
     from m3p2i_aip_tpu.ops.pallas_rollout import make_point_rollout
-    from m3p2i_aip_tpu.planners.motion_planner.mppi import TaskParams
 
     cfg, tamp = _build_tamp(K=16, T=4)
     mp = tamp.motion_planner
-    full = tamp.env.params
-    red = full.replace(
-        substeps=1,
-        pos_iters=1,
-        stat_pos=full.stat_pos[:2],
-        stat_yaw=full.stat_yaw[:2],
-        stat_half=full.stat_half[:2],
-        stat_friction=full.stat_friction[:2],
-        stat_actor_idx=full.stat_actor_idx[:2],
-    )
+    red = _reduced(tamp.env.params)
     ov = make_point_rollout(
         red, float(cfg.kp_suction), mp.K, mp.T, True, interpret=True
     )
-    assert ov is not None
-
     K, T = mp.K, mp.T
     rng = np.random.default_rng(0)
-    B = 2
-    starts = [
-        (jnp.asarray([-0.3, 1.4]), jnp.asarray([0.5, 0.5])),
-        (jnp.asarray([-0.05, 1.75]), jnp.asarray([0.0, 2.0])),
+    starts = [_STARTS[0], _STARTS[2]]
+    tasks = [_task(3, [-3.75, -3.75]), _task(1, [2.0, 1.0])]
+    sKs = [
+        _bcast(tamp.env.init_state().replace(q=q, qd=qd), K) for q, qd in starts
     ]
-    goals = [jnp.asarray([-3.75, -3.75]), jnp.asarray([2.0, 1.0])]
-    task_ids = [3, 1]  # push_pull vs push: per-batch task ids differ too
-
-    sKs, tps_in, acts_in = [], [], []
-    for b in range(B):
-        state = tamp.env.init_state().replace(q=starts[b][0], qd=starts[b][1])
-        sKs.append(
-            jax.tree_util.tree_map(
-                lambda x: jnp.broadcast_to(x, (K,) + x.shape), state
-            )
-        )
-        tps_in.append(
-            TaskParams(
-                task_id=jnp.asarray(task_ids[b], jnp.int32),
-                goal=jnp.concatenate([goals[b], jnp.zeros(5)]).astype(jnp.float32),
-                gripper=jnp.asarray(0, jnp.int32),
-                zup_gate=jnp.asarray(0.0, jnp.float32),
-            )
-        )
-        acts_in.append(
-            jnp.asarray(rng.uniform(-3, 3, size=(K, T, 2)).astype(np.float32))
-        )
-
-    stack = lambda xs: jax.tree_util.tree_map(lambda *l: jnp.stack(l), *xs)
+    acts = [
+        jnp.asarray(rng.uniform(-3, 3, size=(K, T, 2)).astype(np.float32))
+        for _ in starts
+    ]
     ch_b, tps_b = jax.jit(jax.vmap(lambda s, a, t: ov(s, a, t)))(
-        stack(sKs), jnp.stack(acts_in), stack(tps_in)
+        _stack(sKs), jnp.stack(acts), _stack(tasks)
     )
-    for b in range(B):
-        ch_s, tps_s = jax.jit(lambda s, a, t: ov(s, a, t))(
-            sKs[b], acts_in[b], tps_in[b]
-        )
+    for b in range(len(starts)):
+        ch_s, tps_s = jax.jit(lambda s, a, t: ov(s, a, t))(sKs[b], acts[b], tasks[b])
         assert np.allclose(np.asarray(ch_s), np.asarray(ch_b[b]), atol=1e-5), b
         assert np.allclose(np.asarray(tps_s), np.asarray(tps_b[b]), atol=1e-5), b
 
 
-@_skip_on_tpu
 def test_point_rollout_interpret_fric_scale_parity():
     """Kernel vs XLA with per-sample friction randomization live: the
     fric_scale state rows must steer the kernel's contact/ground friction
     exactly like PointEnvState.fric_scale steers point_env.step."""
-    from m3p2i_aip_tpu.models import point_env
     from m3p2i_aip_tpu.ops.pallas_rollout import make_point_rollout
-    from m3p2i_aip_tpu.planners.motion_planner.cost_functions import (
-        PointObjective,
-    )
 
     cfg, tamp = _build_tamp(K=16, T=4)
     mp = tamp.motion_planner
-    full = tamp.env.params
-    red = full.replace(
-        substeps=1,
-        pos_iters=1,
-        stat_pos=full.stat_pos[:2],
-        stat_yaw=full.stat_yaw[:2],
-        stat_half=full.stat_half[:2],
-        stat_friction=full.stat_friction[:2],
-        stat_actor_idx=full.stat_actor_idx[:2],
-    )
+    red = _reduced(tamp.env.params)
     ov = make_point_rollout(
         red, float(cfg.kp_suction), mp.K, mp.T, True, interpret=True
     )
     K, T = mp.K, mp.T
-    obj = PointObjective(red, cfg)
-    mode = (jnp.arange(K) >= K // 2).astype(jnp.int32)
     rng = np.random.default_rng(7)
     D = red.dyn_half.shape[0]
     fs = jnp.asarray(rng.uniform(0.5, 1.5, size=(K, D)).astype(np.float32))
@@ -514,31 +291,10 @@ def test_point_rollout_interpret_fric_scale_parity():
         q=jnp.asarray([0.0, 1.55]), qd=jnp.asarray([0.0, 2.0])
     )
     tp = tamp.tamp_interface(state)
-    sK = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(x, (K,) + x.shape), state
-    )
-    sK = sK.replace(fric_scale=fs)
+    sK = _bcast(state, K).replace(fric_scale=fs)
     acts = jnp.asarray(rng.uniform(-3, 3, size=(K, T, 2)).astype(np.float32))
 
-    def _xla_rollout(state_k, a):
-        ext0 = jax.vmap(lambda _: point_env.zero_ext(red))(jnp.arange(K))
-
-        def step_t(carry, u_t):
-            s, ext = carry
-            s = jax.vmap(lambda st, u, e: point_env.step(red, st, u, e))(
-                s, u_t, ext
-            )
-            cost, ext = jax.vmap(obj.compute, in_axes=(0, 0, None, 0))(
-                s, u_t, tp, mode
-            )
-            return (s, ext), (cost, s.q[:, :2])
-
-        (_, _), (costs, tps) = jax.lax.scan(
-            step_t, (state_k, ext0), jnp.swapaxes(a, 0, 1)
-        )
-        return jnp.swapaxes(costs, 0, 1), jnp.swapaxes(tps, 0, 1)
-
-    ch_ref, tps_ref = jax.jit(_xla_rollout)(sK, acts)
+    ch_ref, tps_ref = jax.jit(_xla_rollout_fn(red, cfg, K))(sK, acts, tp)
     ch_pl, tps_pl = jax.jit(lambda s, a: ov(s, a, tp))(sK, acts)
     assert np.allclose(np.asarray(ch_ref), np.asarray(ch_pl), atol=1e-2)
     assert np.allclose(np.asarray(tps_ref), np.asarray(tps_pl), atol=1e-3)
@@ -546,276 +302,209 @@ def test_point_rollout_interpret_fric_scale_parity():
     assert np.std(np.asarray(ch_pl[:, -1])) > 1e-6
 
 
-@_skip_on_tpu
-@pytest.mark.slow
-def test_panda_rollout_vmap_matches_serial():
-    """jax.vmap of the fused panda rollout == B serial kernel rollouts
-    (different task stages + zup gates per batch element)."""
-    from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.ops.pallas_panda_rollout import make_panda_rollout
-    from m3p2i_aip_tpu.planners.motion_planner.mppi import TaskParams
-    from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
+def test_point_rollout_wrapper_padding_interpret():
+    """The wrapper's padding and offsets: K=40 is not a multiple of the
+    32-sample block (two programs, a padded tail), T=5 pads to 8 output rows
+    and 10 action rows to 16, B=2 runs a (2, 2) grid, and two half-K calls
+    with k0 = 0 and k0 = K/2 (what shard_map runs) equal the full call."""
+    from m3p2i_aip_tpu.ops.pallas_rollout import BLOCK, make_point_rollout
 
-    cfg = load_config(
-        "config_panda",
-        ["mppi.num_samples=8", "mppi.horizon=4", "multi_modal=True"],
-    )
-    tamp = ReactiveTAMP(cfg)
-    mp = tamp.motion_planner
-    red = tamp.env.params
-    ov = make_panda_rollout(red, cfg, mp.K, mp.T, True, interpret=True)
-    assert ov is not None
-
-    K, T = mp.K, mp.T
-    rng = np.random.default_rng(1)
-    base = tamp.env.init_state()
-    goal_q = jnp.asarray([0.0, 0.0, 0.383, 0.924])
-    pick_goal = jnp.concatenate([jnp.asarray([0.4, 0.3, 1.3]), goal_q])
-    attached = base.replace(
-        attached=jnp.asarray(1.0),
-        attach_pos=jnp.asarray([0.0, 0.0, 0.08]),
-        attach_rot=jnp.eye(3),
-    )
-
-    def tp(task_id, goal, gripper, zup):
-        return TaskParams(
-            task_id=jnp.asarray(task_id, jnp.int32),
-            goal=goal.astype(jnp.float32),
-            gripper=jnp.asarray(gripper, jnp.int32),
-            zup_gate=jnp.asarray(zup, jnp.float32),
-        )
-
-    states = [base, attached]
-    tasks = [tp(4, jnp.zeros(7), 0, 0.0), tp(5, pick_goal, 2, 1.0)]
-    B = 2
+    K, T = 40, 5
+    assert K % BLOCK != 0
+    cfg, tamp = _build_tamp(K=K, T=T)
+    red = _reduced(tamp.env.params)
+    ov = make_point_rollout(red, float(cfg.kp_suction), K, T, True, interpret=True)
+    rng = np.random.default_rng(5)
     sKs = [
-        jax.tree_util.tree_map(
-            lambda x: jnp.broadcast_to(x, (K,) + x.shape), s
-        )
-        for s in states
-    ]
-    acts_in = [
-        jnp.asarray(rng.uniform(-1.5, 1.5, size=(K, T, 9)).astype(np.float32))
-        for _ in range(B)
-    ]
-
-    stack = lambda xs: jax.tree_util.tree_map(lambda *l: jnp.stack(l), *xs)
-    ch_b, tps_b = jax.jit(jax.vmap(lambda s, a, t: ov(s, a, t)))(
-        stack(sKs), jnp.stack(acts_in), stack(tasks)
-    )
-    for b in range(B):
-        ch_s, tps_s = jax.jit(lambda s, a, t: ov(s, a, t))(
-            sKs[b], acts_in[b], tasks[b]
-        )
-        assert np.allclose(np.asarray(ch_s), np.asarray(ch_b[b]), atol=1e-5), b
-        assert np.allclose(np.asarray(tps_s), np.asarray(tps_b[b]), atol=1e-5), b
-
-
-@pytest.mark.skipif(not pallas_available(), reason="needs a TPU backend")
-def test_point_rollout_vmap_matches_serial_tpu():
-    """On-device Mosaic check of the grid=(B,) batched rollout: must be
-    BIT-EXACT vs the serial kernel (same kernel body, same data — only the
-    block plumbing differs)."""
-    from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
-
-    cfg = load_config(
-        "config_point", ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]
-    )
-    tamp = ReactiveTAMP(cfg)
-    mp = tamp.motion_planner
-    ov = mp.rollout_override
-    assert ov is not None
-    K, T = mp.K, mp.T
-    rng = np.random.default_rng(0)
-    states = [
-        tamp.env.init_state().replace(q=jnp.asarray(q), qd=jnp.asarray(qd))
-        for q, qd in [([-0.3, 1.4], [0.5, 0.5]), ([-3.7, -3.7], [-2.0, -2.0])]
-    ]
-    tps = [tamp.tamp_interface(s) for s in states]
-    sKs = [
-        jax.tree_util.tree_map(
-            lambda x: jnp.broadcast_to(x, (K,) + x.shape), s
-        )
-        for s in states
+        _bcast(tamp.env.init_state().replace(q=q, qd=qd), K)
+        for q, qd in (_STARTS[0], _STARTS[3])
     ]
     acts = [
         jnp.asarray(rng.uniform(-3, 3, size=(K, T, 2)).astype(np.float32))
-        for _ in states
+        for _ in sKs
     ]
-    stack = lambda xs: jax.tree_util.tree_map(lambda *l: jnp.stack(l), *xs)
-    ch_b, tps_b = jax.jit(jax.vmap(lambda s, a, t: ov(s, a, t)))(
-        stack(sKs), jnp.stack(acts), stack(tps)
+    tp = _task(3, [-3.75, -3.75])
+
+    ref = jax.jit(_xla_rollout_fn(red, cfg, K))
+    ch_b, tps_b = jax.jit(jax.vmap(lambda s, a: ov(s, a, tp)))(
+        _stack(sKs), jnp.stack(acts)
     )
-    for b in range(len(states)):
-        ch_s, tps_s = jax.jit(lambda s, a, t: ov(s, a, t))(
-            sKs[b], acts[b], tps[b]
-        )
-        assert np.array_equal(np.asarray(ch_s), np.asarray(ch_b[b])), b
-        assert np.array_equal(np.asarray(tps_s), np.asarray(tps_b[b])), b
+    assert ch_b.shape == (2, K, T) and tps_b.shape == (2, K, T, 2)
+    for b in range(2):
+        ch_r, tps_r = ref(sKs[b], acts[b], tp)
+        assert np.allclose(np.asarray(ch_r), np.asarray(ch_b[b]), atol=1e-2), b
+        assert np.allclose(np.asarray(tps_r), np.asarray(tps_b[b]), atol=1e-3), b
+
+    half = K // 2
+    full = jax.jit(lambda s, a: ov(s, a, tp))(sKs[0], acts[0])
+    lo = jax.jit(lambda s, a: ov(s, a, tp, k0=0))(
+        jax.tree.map(lambda x: x[:half], sKs[0]), acts[0][:half]
+    )
+    hi = jax.jit(lambda s, a: ov(s, a, tp, k0=half))(
+        jax.tree.map(lambda x: x[half:], sKs[0]), acts[0][half:]
+    )
+    for f, a, b in zip(full, lo, hi):
+        assert np.allclose(np.asarray(f), np.concatenate([a, b]), atol=1e-6)
 
 
-@pytest.mark.skipif(not pallas_available(), reason="needs a TPU backend")
-def test_panda_fused_rollout_matches_xla_tpu():
-    """Panda kernel vs XLA rollout on real TPU (looser tolerances: TPU f32
-    matmul rounding differs between the two lowerings; the strict gate is
-    the CPU interpret-mode test above)."""
-    from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
+def test_kernel_choice_on_cpu_and_unsupported_scene():
+    """Off the GPU the planner takes its XLA path (no interpret fallback);
+    a scene the rollout kernel does not cover is refused loudly."""
+    from m3p2i_aip_tpu.ops import pallas_rollout
 
-    cfg = load_config("config_panda", ["multi_modal=True"])
-    tamp = ReactiveTAMP(cfg)
+    cfg, tamp = _build_tamp()
     mp = tamp.motion_planner
-    assert mp.rollout_override is not None
-
-    state = tamp.env.init_state()
-    tp = tamp.tamp_interface(state)
-    sK = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(x, (mp.K,) + x.shape), state
-    )
-    rng = np.random.default_rng(0)
-    acts = jnp.asarray(
-        rng.uniform(-1.5, 1.5, size=(mp.K, mp.T, 9)).astype(np.float32)
-    )
-    ov = mp.rollout_override
-    mp.rollout_override = None
-    ch_ref, tps_ref = jax.jit(lambda s, a: mp._rollout(s, a, tp))(sK, acts)
-    mp.rollout_override = ov
-    ch_pl, tps_pl = jax.jit(lambda s, a: ov(s, a, tp))(sK, acts)
-    # measured worst maxdiff 3e-6 once panda_fk pins Precision.HIGHEST (the
-    # old 0.045 gap was the XLA path's bf16-default MXU matmuls, not the
-    # kernel) — scripts/check_panda_kernel_parity_tpu.py re-measures
-    assert np.allclose(np.asarray(ch_ref), np.asarray(ch_pl), atol=1e-4), (
-        np.abs(np.asarray(ch_ref) - np.asarray(ch_pl)).max()
-    )
-    assert np.allclose(np.asarray(tps_ref), np.asarray(tps_pl), atol=1e-4)
+    assert jax.default_backend() == "cpu"
+    assert not mp.use_pallas and mp.rollout_override is None
+    params = tamp.env.params
+    assert pallas_rollout.rollout_kernel_supported(params)
+    names = tuple("crate" if n == "box" else n for n in params.actor_names)
+    no_box = params.replace(actor_names=names)
+    assert not pallas_rollout.rollout_kernel_supported(no_box)
+    with pytest.raises(ValueError):
+        pallas_rollout.make_point_rollout(no_box, 400.0, mp.K, mp.T, True)
 
 
-@_skip_on_tpu
-def test_albert_rollout_interpret_matches_xla_cpu():
-    """Albert kernel-vs-XLA rollout parity on CPU (interpret mode).
+def test_triton_kernels_lower_for_cuda():
+    """The Triton lowering accepts both kernels at full width (K=200 x T=15,
+    full physics), batched, and inside the whole planner command — checked
+    on the CPU by lowering for the CUDA platform."""
+    from m3p2i_aip_tpu.ops.pallas_kernels import multimodal_weights_pallas
+    from m3p2i_aip_tpu.ops.pallas_rollout import make_point_rollout
 
-    Covers the kernel's riskiest transcriptions: the base-composed FK chain
-    (lane-valued initial rotation), the diff-drive + 9-channel arm velocity
-    drive, the planar PBD base-vs-box contact, and all four cost branches
-    (ee_reach / push_reach incl. the hover sigmoid / reposition /
-    navigation).  FULL physics params (substeps=2); K/T reduced for
-    interpret-mode runtime (CLAUDE.md kernel-parity invariant).
-    """
-    from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.models import albert
-    from m3p2i_aip_tpu.ops.pallas_albert_rollout import make_albert_rollout
-    from m3p2i_aip_tpu.planners.motion_planner.mppi import TaskParams
-    from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
-
-    cfg = load_config(
-        "config_albert",
-        ["mppi.num_samples=16", "mppi.horizon=4", "mppi.refine_iters=0"],
-    )
-    tamp = ReactiveTAMP(cfg)
+    cfg, tamp = _build_tamp(K=200, T=15)
     mp = tamp.motion_planner
-    p = tamp.env.params
-    assert bool(p.has_box), "albert parity scene must ship the pushable box"
-    ov = make_albert_rollout(p, tamp.objective, mp.K, mp.T, interpret=True)
-    assert ov is not None
-
     K, T = mp.K, mp.T
-    obj = tamp.objective
-    mode = jnp.zeros(K, jnp.int32)
-
-    def _xla_rollout(state_k, acts, task):
-        def step_t(carry, u_t):
-            s = carry
-            s = jax.vmap(lambda st, u: albert.step(p, st, u))(s, u_t)
-            cost, _ = jax.vmap(obj.compute, in_axes=(0, 0, None, 0))(
-                s, u_t, task, mode
-            )
-            return s, (cost, s.q[:, :2])
-
-        acts_t = jnp.swapaxes(acts, 0, 1)
-        _, (costs, tps) = jax.lax.scan(step_t, state_k, acts_t)
-        return jnp.swapaxes(costs, 0, 1), jnp.swapaxes(tps, 0, 1)
-
-    def tp(task_id, goal):
-        g = jnp.zeros(7).at[: len(goal)].set(jnp.asarray(goal, jnp.float32))
-        return TaskParams(
-            task_id=jnp.asarray(task_id, jnp.int32),
-            goal=g,
-            gripper=jnp.asarray(0, jnp.int32),
-            zup_gate=jnp.asarray(0.0, jnp.float32),
-        )
-
-    base = tamp.env.init_state()
-    # base adjacent to the box, driving into it (contact fires immediately)
-    contact = base.replace(
-        q=base.q.at[0].set(float(p.box_init[0]) - 0.56),
-        qd=base.qd.at[0].set(0.8),
-        box_vel=jnp.asarray([0.1, -0.05]),
-        box_om=jnp.asarray(0.4),
-    )
-    # arm bent mid-range, base rotated (exercises the lane-valued FK base)
-    bent = base.replace(
-        q=base.q.at[2].set(0.9).at[4].set(-1.2).at[6].set(0.7),
-        qd=base.qd.at[11].set(0.5),
-    )
-
-    rng = np.random.default_rng(3)
-    cases = [
-        (base, tp(7, [2.0, 2.0, 0.6])),      # ee_reach
-        (bent, tp(7, [1.0, -1.5, 0.9])),     # ee_reach, rotated base
-        (contact, tp(9, [3.0, 0.0, 0.6])),   # push_reach through contact
-        (contact, tp(8, [0.5, -0.5])),       # reposition keep-out
-        (base, tp(0, [1.5, 1.0])),           # navigation
-    ]
-    for i, (st, task) in enumerate(cases):
-        sK = jax.tree_util.tree_map(
-            lambda x: jnp.broadcast_to(x, (K,) + x.shape), st
-        )
-        acts = jnp.asarray(
-            rng.uniform(-1.5, 1.5, size=(K, T, 13)).astype(np.float32)
-        )
-        ch_ref, tps_ref = _xla_rollout(sK, acts, task)
-        ch_pl, tps_pl = ov(sK, acts, task)
-        np.testing.assert_allclose(
-            np.asarray(ch_pl), np.asarray(ch_ref), atol=2e-4, rtol=1e-4,
-            err_msg=f"case {i} cost",
-        )
-        np.testing.assert_allclose(
-            np.asarray(tps_pl), np.asarray(tps_ref), atol=1e-5,
-            err_msg=f"case {i} traj",
-        )
-
-
-@pytest.mark.skipif(not pallas_available(), reason="needs a TPU backend")
-def test_albert_fused_rollout_matches_xla_tpu():
-    """Albert kernel vs XLA rollout on real TPU (the CPU interpret test
-    above is the strict gate; this validates the Mosaic lowering)."""
-    from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
-
-    cfg = load_config(
-        "config_albert", ["task=push_reach", "goal=[3.0,0.0,0.6]"]
-    )
-    tamp = ReactiveTAMP(cfg)
-    mp = tamp.motion_planner
-    assert mp.rollout_override is not None
-
+    ov = make_point_rollout(tamp.env.params, float(cfg.kp_suction), K, T, True)
     state = tamp.env.init_state()
     tp = tamp.tamp_interface(state)
-    sK = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(x, (mp.K,) + x.shape), state
+    sK = _bcast(state, K)
+    acts = jnp.zeros((K, T, 2), jnp.float32)
+
+    def n_kernels(fn, *args):
+        low = jax.jit(fn).trace(*args).lower(lowering_platforms=("cuda",))
+        return low.as_text().count("__gpu$xla.gpu.triton")
+
+    B = 4
+    batch = lambda x: jnp.broadcast_to(x[None], (B,) + x.shape)
+    assert n_kernels(jax.vmap(lambda s, a, t: ov(s, a, t)),
+                     jax.tree.map(batch, sK), batch(acts), jax.tree.map(batch, tp)) == 1
+    # K=10^4 x T=30: the weight kernel's tile loop, not a bigger block
+    assert n_kernels(
+        lambda c: multimodal_weights_pallas(c, jnp.ones(30), 5000),
+        jnp.zeros((10000, 30)),
+    ) == 1
+    mp.use_pallas = True
+    mp.set_rollout_override(ov)
+    assert n_kernels(mp._command_impl, tamp.mppi_state, state, tp) == 2
+
+
+# ---------------------------------------------------------------------------
+# on the card: compiled kernels at full widths vs the XLA reference
+# ---------------------------------------------------------------------------
+
+
+def _report(name, ref, got, atol):
+    ref, got = np.asarray(ref), np.asarray(got)
+    err = np.abs(ref - got)
+    rel = err / np.maximum(np.abs(ref), 1e-6)
+    print(
+        f"parity {name}: max_abs={err.max():.3e} max_rel={rel.max():.3e} "
+        f"atol={atol:g}"
     )
-    rng = np.random.default_rng(0)
-    acts = jnp.asarray(
-        rng.uniform(-1.5, 1.5, size=(mp.K, mp.T, 13)).astype(np.float32)
-    )
+    return bool(np.all(np.isfinite(got)) and err.max() <= atol)
+
+
+# Tolerances: the kernel sums the Jacobi contact corrections per lane in
+# another order than XLA's vectorized reductions, so f32 rounding differs
+# and grows through 15 steps of contact; 1e-2 on costs (values up to ~10^3)
+# and 1e-3 m on positions.  Weights are one reduction deep: 1e-6.
+_COST_ATOL, _TRAJ_ATOL, _W_ATOL = 1e-2, 1e-3, 1e-6
+
+
+@pytest.mark.gpu
+def test_rollout_kernel_matches_xla_gpu():
+    """Compiled point rollout kernel vs the XLA rollout (mppi.py _rollout)
+    at K=200 x T=15 with full physics, from multi-contact starts; then the
+    batched call (B=20) vs 20 serial calls, and two K/2 shards with their
+    k0 offsets vs the full call."""
+    cfg, tamp = _build_tamp(K=200, T=15)
+    mp = tamp.motion_planner
     ov = mp.rollout_override
-    mp.rollout_override = None
-    ch_ref, tps_ref = jax.jit(lambda s, a: mp._rollout(s, a, tp))(sK, acts)
-    mp.rollout_override = ov
-    ch_pl, tps_pl = jax.jit(lambda s, a: ov(s, a, tp))(sK, acts)
-    # measured 3.8e-6 on the v5e (round 5)
-    assert np.allclose(np.asarray(ch_ref), np.asarray(ch_pl), atol=1e-4), (
-        np.abs(np.asarray(ch_ref) - np.asarray(ch_pl)).max()
+    assert ov is not None and mp.use_pallas
+    # the reference: the same planner built on its plain XLA path
+    _, ref_tamp = _build_tamp(K=200, T=15, overrides=("mppi.use_pallas=False",))
+    assert ref_tamp.motion_planner.rollout_override is None
+    K, T = mp.K, mp.T
+    rng = np.random.default_rng(0)
+    ok = True
+    ref_fn = jax.jit(ref_tamp.motion_planner._rollout)
+    kern_fn = jax.jit(lambda s, a, t: ov(s, a, t))
+    cases = []
+    for q0, qd0 in _STARTS:
+        state = tamp.env.init_state().replace(q=q0, qd=qd0)
+        tp = tamp.tamp_interface(state)
+        acts = jnp.asarray(rng.uniform(-3, 3, size=(K, T, 2)).astype(np.float32))
+        cases.append((_bcast(state, K), acts, tp))
+        with jax.default_matmul_precision("highest"):
+            ch_ref, tps_ref = ref_fn(_bcast(state, K), acts, tp)
+        ch, tps = kern_fn(_bcast(state, K), acts, tp)
+        q = np.asarray(q0).tolist()
+        ok &= _report(f"rollout cost q0={q}", ch_ref, ch, _COST_ATOL)
+        ok &= _report(f"rollout traj q0={q}", tps_ref, tps, _TRAJ_ATOL)
+
+    B = 20
+    sel = [cases[b % len(cases)] for b in range(B)]
+    acts_b = jnp.stack([
+        jnp.asarray(rng.uniform(-3, 3, size=(K, T, 2)).astype(np.float32))
+        for _ in range(B)
+    ])
+    ch_b, tps_b = jax.jit(jax.vmap(lambda s, a, t: ov(s, a, t)))(
+        _stack([c[0] for c in sel]), acts_b, _stack([c[2] for c in sel])
     )
-    assert np.allclose(np.asarray(tps_ref), np.asarray(tps_pl), atol=1e-4)
+    serial = [kern_fn(sel[b][0], acts_b[b], sel[b][2]) for b in range(B)]
+    ok &= _report("batched B=20 vs serial cost", np.stack([s[0] for s in serial]), ch_b, 1e-5)
+    ok &= _report("batched B=20 vs serial traj", np.stack([s[1] for s in serial]), tps_b, 1e-5)
+
+    sK, acts, tp = cases[2]
+    half = K // 2
+    full = kern_fn(sK, acts, tp)
+    shard = jax.jit(lambda s, a, k0: ov(s, a, tp, k0=k0))
+    lo = shard(jax.tree.map(lambda x: x[:half], sK), acts[:half], 0)
+    hi = shard(jax.tree.map(lambda x: x[half:], sK), acts[half:], half)
+    ok &= _report("k0 shards vs full cost", full[0], np.concatenate([lo[0], hi[0]]), 1e-5)
+    ok &= _report("k0 shards vs full traj", full[1], np.concatenate([lo[1], hi[1]]), 1e-5)
+    assert ok
+
+
+@pytest.mark.gpu
+def test_weights_kernel_matches_xla_gpu():
+    """Compiled weight kernel vs the XLA while-loop path at K=200 x T=15 and
+    at K=1000 (two tiles), plus the batched call (B=20) vs serial calls."""
+    from m3p2i_aip_tpu.ops.pallas_kernels import multimodal_weights_pallas
+
+    ok = True
+    rng = np.random.default_rng(1)
+    for K in (200, 1000):
+        _, tamp = _build_tamp(K=K, T=15)
+        mp = tamp.motion_planner
+        ch = jnp.asarray(rng.uniform(0, 50, size=(K, mp.T)).astype(np.float32))
+        mp.use_pallas = False
+        with jax.default_matmul_precision("highest"):
+            ref = jax.jit(mp._multi_modal_exp_util)(ch)
+        got = jax.jit(
+            lambda c: multimodal_weights_pallas(c, mp.gamma_seq, mp.half_K)
+        )(ch)
+        for name, r, g in zip(("w0", "w1", "w"), ref, got):
+            ok &= _report(f"weights K={K} {name}", r, g, _W_ATOL)
+        if K == 200:
+            chs = jnp.asarray(rng.uniform(0, 50, size=(20, K, mp.T)).astype(np.float32))
+            one = lambda c: multimodal_weights_pallas(c, mp.gamma_seq, mp.half_K)
+            got_b = jax.jit(jax.vmap(one))(chs)
+            serial = [jax.jit(one)(chs[b]) for b in range(20)]
+            for i, name in enumerate(("w0", "w1", "w")):
+                ok &= _report(
+                    f"weights batched B=20 {name}",
+                    np.stack([s[i] for s in serial]), got_b[i], 1e-7,
+                )
+    assert ok

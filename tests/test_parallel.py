@@ -89,7 +89,7 @@ def test_dryrun_multichip_self_provisions():
 
 @pytest.mark.slow
 def test_sharded_equals_unsharded_large_K():
-    """Action equality sharded vs unsharded at K=512 (VERDICT round 1 #5)."""
+    """Action equality sharded vs unsharded at K=512."""
     tamp_a = _build(512)
     tamp_b = _build(512)
     shard_planner(tamp_b.motion_planner, make_mesh())
@@ -105,7 +105,7 @@ def test_sharded_kernel_rollout_matches_unsharded():
     """The fused rollout kernel composes with the mesh: under shard_map each
     device runs the kernel on its K/n slice with a global sample offset, so
     the M3P2I mode split (second half of K = pull) stays correct.  Validated
-    on the virtual CPU mesh via the interpret-mode kernel."""
+    on the virtual CPU mesh via the interpret-mode Triton kernel."""
     from m3p2i_aip_tpu.ops.pallas_rollout import make_point_rollout
 
     tamp = _build(32)
@@ -147,12 +147,11 @@ def test_sharded_kernel_rollout_matches_unsharded():
     assert np.allclose(np.asarray(tps_un), np.asarray(tps_sh), atol=1e-5)
 
 
-def test_sharded_albert_kernel_rollout_matches_unsharded():
-    """The albert kernel (round 5) composes with the sample-axis mesh the
-    same way: shard_map runs the interpret-mode kernel on each device's
-    K/n slice; results must match the unsharded call."""
+def test_sharded_albert_xla_rollout_matches_unsharded():
+    """The albert family's XLA rollout composes with the sample-axis mesh:
+    GSPMD partitions the vmapped rollout over the 8 devices and the results
+    must match the unsharded call."""
     from m3p2i_aip_tpu.config.config_store import load_config
-    from m3p2i_aip_tpu.ops.pallas_albert_rollout import make_albert_rollout
     from m3p2i_aip_tpu.tamp.reactive_tamp import ReactiveTAMP
 
     cfg = load_config(
@@ -165,10 +164,7 @@ def test_sharded_albert_kernel_rollout_matches_unsharded():
     )
     tamp = ReactiveTAMP(cfg)
     mp = tamp.motion_planner
-    ov = make_albert_rollout(
-        tamp.env.params, tamp.objective, mp.K, mp.T, interpret=True
-    )
-    assert ov is not None
+    assert mp.rollout_override is None
     state = tamp.env.init_state()
     tp = tamp.tamp_interface(state)
     sK = jax.tree_util.tree_map(
@@ -179,9 +175,11 @@ def test_sharded_albert_kernel_rollout_matches_unsharded():
         rng.uniform(-1.5, 1.5, size=(mp.K, mp.T, 13)).astype(np.float32)
     )
 
-    mp.set_rollout_override(ov)
     ch_un, tps_un = jax.jit(lambda s, a: mp._rollout(s, a, tp))(sK, acts)
     mp.set_mesh(make_mesh())
-    ch_sh, tps_sh = jax.jit(lambda s, a: mp._rollout(s, a, tp))(sK, acts)
+    ch_sh, tps_sh = jax.jit(
+        lambda s, a: mp._rollout(s, mp._constrain_samples(a), tp)
+    )(sK, acts)
+    assert len(ch_sh.sharding.device_set) == 8
     assert np.allclose(np.asarray(ch_un), np.asarray(ch_sh), atol=1e-4)
     assert np.allclose(np.asarray(tps_un), np.asarray(tps_sh), atol=1e-5)

@@ -1,6 +1,6 @@
 """Point-family cost-surface pins.
 
-Round 5 (VERDICT r4 weak #6): the corner-pull honest negative is a
+The corner-pull honest negative is a
 GEOMETRIC floor, not a planner bug — these tests pin the mechanism so a
 future cost change that silently moves it fails loudly.
 

@@ -341,7 +341,7 @@ def test_boxer_parity_ablation_flags():
 
 
 def test_per_sample_friction_randomization():
-    """Per-rollout friction draws (VERDICT r3 #5 / isaacgym_wrapper.py:313-319):
+    """Per-rollout friction draws (isaacgym_wrapper.py:313-319):
     with noise_percentage_friction set, each of the K rollout states carries
     a DISTINCT friction scale, reseeding redraws them without a rebuild, and
     identical push actions physically diverge across samples."""
@@ -557,7 +557,7 @@ def test_per_mode_cov_adapts_and_diverges():
 @pytest.mark.slow
 def test_heijn_push_reaches_goal():
     """Heijn (3-dof omni base) pushes the box to the goal — the contact
-    family beyond navigation for this robot (VERDICT round-2 #5)."""
+    family beyond navigation for this robot."""
     cfg = load_config(
         "config_heijn", ["task=push", "goal=[-1,-1]", "mppi.num_samples=128"]
     )

@@ -302,7 +302,7 @@ def test_stall_latch_tick_granular_under_chunking():
 
 
 def test_pocket_endgame_pull_recovery_cycle():
-    """Round-5 pull recovery (VERDICT r4 weak #6): a pocket-goal PURE pull
+    """Round-5 pull recovery: a pocket-goal PURE pull
     arms the stall latch; on a mid-drag freeze the planner repositions to a
     standoff on the GOAL side of the box (a puller drags the box toward
     itself) and then RESUMES PULL — never push — so the ablation stays
